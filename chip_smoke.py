@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's core assembler once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's core assembler and mapper refinement once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -22,12 +23,26 @@ exits non-zero without its last line:
              with config.device.use_device unset, which runs the host
              edges and chaining and puts nothing on the card;
 5. shapes  — the kernel against its plain version at the (B, K) batches the
-             phase-4 run gave it.
+             phase-4 run gave it;
+6. align_kernels — the three edit-distance kernels (exact Myers, banded
+             Myers at 2, 4 and 8 window words, the wavefront at bands 128
+             and 256) against their plain versions on the card, on random
+             pairs mutated at 0-30 % with Ns, empty queries and unrelated
+             lengths, at M in {31, 32, 33, 1000, 4096} x P in {1, 33, 4096};
+             bit-equal required; median CUDA-event times at P = 4096;
+7. refine  — phase 4's unitigs and reads with 8 % nanopore-style noise,
+             mapped by the port's map_all with cfg.refine on the card (the
+             refinement of `full`'s map stages), then refine_mappings'
+             wavefront engine with the banded Myers kernel and with the
+             wavefront kernel; a sample of the exact distances against the
+             host's big-int Myers; then each kernel against its plain version
+             on the very arrays the map_all path packed.
 
 Then the kernel summary line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-The chain_scan launch count is reset to 0 just before phases 3 and 4 and
-must be > 0 after each; launches made for comparison do not count.
+Each path's launch counts are reset to 0 just before it runs and read just
+after, and must be > 0 for the kernels that path runs; launches made for
+comparison do not count.
 """
 
 from __future__ import annotations
@@ -48,6 +63,11 @@ import torch
 OUTPUTS = ("temp_1.target.fa", "temp_1.query.fa", "temp_1.align.paf")
 BUCKETS = (8, 16, 32, 64, 128)
 PHASE2_SHAPES = [(B, K) for K in BUCKETS for B in (1, 33, 4096)] + [(65536, 32)]
+ALIGN_M = (31, 32, 33, 1000, 4096)
+ALIGN_P = (1, 33, 4096)
+WINDOW_WORDS = (2, 4, 8)
+BANDS = (128, 256)
+REFINE_BAND = 256
 
 
 def load_test_module(name: str):
@@ -78,9 +98,9 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def median_ms(fn, reps: int) -> float:
+def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median device time of one call, by CUDA events, after warm-up."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -115,6 +135,178 @@ def compare_scan(scan_inputs, B: int, K: int, kind: str, seed: int, timed: bool)
         row["ms"] = median_ms(lambda: chain_scan(c, i), reps=20)
         row["plain_ms"] = median_ms(lambda: chain_scan_reference(c, i), reps=5)
     return row
+
+
+def align_cases():
+    """(name, kernel, plain version, keyword arguments) of every
+    edit-distance kernel configuration phase 6 checks."""
+    from muchsalsa_tpu_torch.ops.align_torch import (
+        banded_edit_distance, banded_edit_distance_reference)
+    from muchsalsa_tpu_torch.ops.myers_torch import (
+        myers_banded, myers_banded_reference, myers_edit_distance,
+        myers_edit_distance_reference)
+
+    return ([("myers_full", myers_edit_distance, myers_edit_distance_reference, {})]
+            + [("myers_banded", myers_banded, myers_banded_reference, {"window_words": wb})
+               for wb in WINDOW_WORDS]
+            + [("banded_wavefront", banded_edit_distance, banded_edit_distance_reference,
+                {"band": b}) for b in BANDS])
+
+
+def compare_align(name, kernel, plain, args, kw, timed: bool) -> dict:
+    """Kernel vs plain version on the same CUDA tensors; raises unless
+    bit-equal."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"{name} {kw} disagrees with its plain version at P={args[0].shape[0]} "
+            f"M={args[0].shape[1]} N={args[2].shape[1]}: max_abs_err={err}, "
+            f"mismatches={int((got != want).sum())}")
+    row = {"kernel": name, **kw, "P": args[0].shape[0], "M": args[0].shape[1],
+           "N": args[2].shape[1], "max_abs_err": err, "refused": int((got < 0).sum())}
+    if timed:
+        row["ms"] = median_ms(lambda: kernel(*args, **kw), reps=10)
+        row["plain_ms"] = median_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+    return row
+
+
+def reset_align_launches() -> None:
+    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
+
+    for fn in (myers_edit_distance, myers_banded, banded_edit_distance):
+        fn.launches = 0
+
+
+def phase_align_kernels(card: str, device) -> dict[str, int]:
+    """Phase 6: every edit-distance kernel configuration against its plain
+    version at the ALIGN_M x ALIGN_P shapes; returns the largest error of
+    each kernel."""
+    from muchsalsa_tpu_torch.ops.align_torch import pack_problems
+    from muchsalsa_tpu_torch.testing.pairs import random_pairs
+
+    align_err = {"myers_full": 0, "myers_banded": 0, "banded_wavefront": 0}
+    for M in ALIGN_M:
+        for P in ALIGN_P:
+            pairs = random_pairs(np.random.default_rng(M * 10_000 + P), P, M)
+            args = tuple(x.to(device) for x in pack_problems(pairs))
+            for name, kernel, plain, kw in align_cases():
+                row = compare_align(name, kernel, plain, args, kw, timed=P == max(ALIGN_P))
+                align_err[name] = max(align_err[name], row["max_abs_err"])
+                emit("align_kernels", card=card, **row)
+    return align_err
+
+
+def phase_refine(card: str, sim, device, align_err: dict[str, int]):
+    """Phase 7: the simulation's unitigs and noisy reads through the port's
+    map_all with refinement on ``device``, then refine_mappings' wavefront
+    engine with each of its kernels, a sample against the host oracle, and
+    every kernel against its plain version on the arrays map_all packed.
+    Returns (launches of each kernel on its path, timing rows)."""
+    from muchsalsa_tpu_torch.config import Config
+    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import (
+        MinimizerIndex, SequenceStore, map_all, map_batch, refine_mappings)
+    from muchsalsa_tpu_torch.testing.pairs import myers_bigint
+    from muchsalsa_tpu_torch.testing.simulate import add_noise
+
+    t0 = time.perf_counter()
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    noise_rng = np.random.default_rng(1)
+    for name, seq in sim.read_records():
+        reads.add(name, add_noise(noise_rng, seq, 0.08))
+    data_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(Config().mapper, refine=True, refine_band=REFINE_BAND)
+    t0 = time.perf_counter()
+    index = MinimizerIndex.build(unitigs, cfg)
+    index_s = time.perf_counter() - t0
+    names = dict(unitig_names=lambda u: unitigs.registry.name(u),
+                 read_names=lambda r: reads.registry.name(r))
+
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    reset_align_launches()
+    t0 = time.perf_counter()
+    lines = map_all(index, reads, cfg, unitigs=unitigs, refine_device=device, stats=stats,
+                    **names)
+    map_all_s = time.perf_counter() - t0
+    refine_launches = {"myers_full": myers_edit_distance.launches,
+                       "myers_banded": myers_banded.launches,
+                       "banded_wavefront": banded_edit_distance.launches}
+    if "jax" in sys.modules:
+        raise AssertionError("the port's map_all loaded jax")
+    if refine_launches["myers_full"] == 0:
+        raise AssertionError("map_all with cfg.refine never launched the exact Myers kernel")
+    peak = torch.cuda.max_memory_allocated()
+    unrefined = map_all(index, reads, dataclasses.replace(cfg, refine=False), **names)
+    if len(unrefined) != len(lines) or len(lines) != stats["problems"]:
+        raise AssertionError(f"{len(lines)} refined lines, {len(unrefined)} unrefined, "
+                             f"{stats['problems']} problems")
+    changed = sum(a.split("\t")[9] != b.split("\t")[9] for a, b in zip(lines, unrefined))
+    for ln in lines:
+        c = ln.split("\t")
+        if not 0 <= int(c[9]) <= int(c[10]):
+            raise AssertionError(f"refined matches outside [0, block]: {ln}")
+
+    # the wavefront engine's two kernels, each through refine_mappings
+    per_read = map_batch(index, reads, cfg)
+    wavefront_runs = {}
+    for kernel_name, use_pallas in (("myers_banded", True), ("banded_wavefront", False)):
+        maps = [(rid, [dataclasses.replace(m) for m in ms]) for rid, ms in per_read]
+        reset_align_launches()
+        t0 = time.perf_counter()
+        refine_mappings(maps, reads, unitigs, band=REFINE_BAND, engine="wavefront",
+                        use_pallas=use_pallas, device=device)
+        wall = time.perf_counter() - t0
+        launched = {"myers_full": myers_edit_distance.launches,
+                    "myers_banded": myers_banded.launches,
+                    "banded_wavefront": banded_edit_distance.launches}
+        if launched[kernel_name] == 0:
+            raise AssertionError(f"refine_mappings(engine='wavefront', use_pallas={use_pallas}) "
+                                 f"never launched {kernel_name}")
+        refine_launches[kernel_name] = launched[kernel_name]
+        wavefront_runs[kernel_name] = {"use_pallas": use_pallas, "wall_s": wall,
+                                       "launches": launched}
+
+    # a sample of the exact distances against the host's big-int Myers
+    dists = myers_edit_distance(*stats["packed"]).cpu().numpy()
+    alphabet = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    sample = np.random.default_rng(7).choice(len(dists), size=min(256, len(dists)),
+                                             replace=False)
+    qs, ql, ts, tl = (x.cpu().numpy() for x in stats["packed"])
+    for i in sample:
+        q = alphabet[qs[i, :ql[i]]].tobytes()
+        t = alphabet[ts[i, :tl[i]]].tobytes()
+        if b"N" in q or b"N" in t:
+            raise AssertionError("the simulated reads hold no N")
+        if myers_bigint(q, t) != dists[i]:
+            raise AssertionError(f"problem {i}: kernel {dists[i]}, host {myers_bigint(q, t)}")
+
+    emit("refine", card=card, problems=stats["problems"], M=stats["M"], N=stats["N"],
+         reads=len(reads.ids()), unitigs=len(unitigs.ids()), noise_s=data_s,
+         index_s=index_s, map_s=stats["map_s"], pack_s=stats["pack_s"],
+         distance_s=stats["distance_s"], refine_s=stats["refine_s"], map_all_s=map_all_s,
+         lines=len(lines), changed_matches=changed, host_checked=len(sample),
+         launches=refine_launches, wavefront_runs=wavefront_runs, cuda_peak_bytes=peak)
+
+    slice_rows = {}
+    packed = stats["packed"]
+    for name, kernel, plain, kw in align_cases():
+        if name == "myers_banded" and kw["window_words"] != REFINE_BAND // 32:
+            continue
+        if name == "banded_wavefront" and kw["band"] != REFINE_BAND:
+            continue
+        row = compare_align(name, kernel, plain, packed, kw, timed=True)
+        align_err[name] = max(align_err[name], row["max_abs_err"])
+        slice_rows[name] = row
+        emit("refine_kernels", card=card, **row)
+    return refine_launches, slice_rows
 
 
 def with_device_config(**device_fields):
@@ -190,7 +382,6 @@ def main() -> int:
                        unitig_gap=300)
         paths = write_simulation(sim, work / "ecoli" / "data")
         n_reads = sum(1 for _ in sim.read_records())
-        del sim
         sim_s = time.perf_counter() - t0
         args = (paths["paf"], paths["unitigs"], paths["reads"])
 
@@ -239,9 +430,15 @@ def main() -> int:
     # the summary times the bucket that carried the most problems
     top = max(main_rows, key=lambda r: r["B"])
 
+    # --- 6. edit-distance kernels vs their plain versions
+    align_err = phase_align_kernels(card, torch.device("cuda"))
+
+    # --- 7. refinement on the card, through the port's entry points
+    refine_launches, slice_rows = phase_refine(card, sim, torch.device("cuda"), align_err)
+
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke loaded jax")
-    print(json.dumps({"kernels": [{
+    summary = [{
         "name": "chain_scan",
         "route": "cuda",
         "source": "muchsalsa_tpu_torch/csrc/chain_scan.cu",
@@ -250,7 +447,20 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
-    }]}), flush=True)
+    }]
+    for name, replaces in (("myers_full", "muchsalsa_tpu/ops/myers_full_pallas.py:42"),
+                           ("myers_banded", "muchsalsa_tpu/ops/myers_pallas.py:61"),
+                           ("banded_wavefront", "muchsalsa_tpu/ops/align_pallas.py:54")):
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"muchsalsa_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": refine_launches[name],
+            "max_abs_err": align_err[name],
+            "ms": slice_rows[name]["ms"],
+            "plain_ms": slice_rows[name]["plain_ms"],
+        })
+    print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
-with a plain C interface (``extern "C"`` launchers), loaded with ``ctypes``.
-The library is built on first use into ``build/muchsalsa_tpu_torch/`` at the
-root of the checkout, named by a hash of the sources and the flags, so an
-edited source builds anew and an unchanged one is reused.  Nothing is
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface (``extern "C"`` launchers), loaded with ``ctypes``.  The
+library is built on first use into ``build/muchsalsa_tpu_torch/`` at the
+root of the checkout, named by a hash of the sources, headers and flags, so
+an edited source builds anew and an unchanged one is reused.  Nothing is
 fetched from outside the checkout; a failed build raises.
 """
 
@@ -22,14 +23,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "muchsalsa_tpu_torch"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17", "-O3",
     # no a*b+c -> fma contraction: results must stay bit-equal to the plain
     # float64 versions
     "--fmad=false",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -54,7 +56,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libms_kernels_{h.hexdigest()[:16]}.so"
@@ -67,18 +69,34 @@ def build() -> Path:
     if lib_path.is_file():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never see
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, lib_path)
+    nvcc = _nvcc()
+    logs = []
+    # private names, then a rename: a concurrent build never sees a
+    # half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        failed = []
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if not failed:
+            lib_tmp = Path(tmp) / lib_path.name
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+                              f"{proc.stdout}{proc.stderr}")
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(lib_tmp, lib_path)
     return lib_path
 
 
@@ -90,7 +108,12 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.ms_chain_scan.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-            lib.ms_chain_scan.restype = ci
+            lib.ms_myers_full.argtypes = [vp] * 8 + [ci] * 5 + [vp]
+            lib.ms_myers_banded.argtypes = [vp] * 6 + [ci] * 9 + [vp]
+            lib.ms_banded_wavefront.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+            for fn in (lib.ms_chain_scan, lib.ms_myers_full, lib.ms_myers_banded,
+                       lib.ms_banded_wavefront):
+                fn.restype = ci
             lib.ms_cuda_error_string.argtypes = [ci]
             lib.ms_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -4,7 +4,7 @@ Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  This
 module imports no JAX, so on a machine with a card and no JAX it runs as
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q``.
 Tolerance: exact equality (bit-equal float64 scores, equal int32
-backpointers and identical output bytes).
+backpointers and distances, and identical output bytes).
 """
 
 import dataclasses
@@ -16,7 +16,12 @@ import numpy as np
 import pytest
 import torch
 
+from muchsalsa_tpu_torch.ops.align_torch import (
+    banded_edit_distance, banded_edit_distance_reference, pack_problems)
 from muchsalsa_tpu_torch.ops.chain_scan import NEG, chain_scan, chain_scan_reference
+from muchsalsa_tpu_torch.ops.myers_torch import (
+    myers_banded, myers_banded_reference, myers_edit_distance, myers_edit_distance_reference)
+from muchsalsa_tpu_torch.testing.pairs import random_pairs
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +118,79 @@ def test_port_golden_on_card(cuda, tmp_path):
     assert chain_scan.launches > before
     got = {n: hashlib.sha256((tmp_path / "out" / n).read_bytes()).hexdigest() for n in GOLDEN}
     assert got == GOLDEN
+
+
+# M = 1100 takes the exact kernel's path with VP/VN in device memory
+ALIGN_SHAPES = [(P, M) for M in (31, 32, 33, 1000) for P in (1, 33, 512)] + [(33, 1100)]
+
+
+def align_inputs(P, M, seed, device):
+    """A packed batch of random pairs (mutated at 0-30 % with Ns, empty
+    queries, unrelated lengths) on ``device``."""
+    return tuple(x.to(device) for x in pack_problems(random_pairs(np.random.default_rng(seed), P, M)))
+
+
+def check_kernel(kernel, reference, args, **kw):
+    before = kernel.launches
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got, reference(*args, **kw))
+
+
+@pytest.mark.parametrize("P,M", ALIGN_SHAPES)
+def test_myers_full_kernel_matches_reference(cuda, P, M):
+    check_kernel(myers_edit_distance, myers_edit_distance_reference,
+                 align_inputs(P, M, P + M, cuda))
+
+
+def test_myers_full_kernel_max_n(cuda):
+    args = align_inputs(64, 100, 5, cuda)
+    for max_n in (0, 17, 64, 1000):
+        check_kernel(myers_edit_distance, myers_edit_distance_reference, args, max_n=max_n)
+
+
+@pytest.mark.parametrize("window_words", (2, 4, 8))
+@pytest.mark.parametrize("P,M", ALIGN_SHAPES)
+def test_myers_banded_kernel_matches_reference(cuda, P, M, window_words):
+    check_kernel(myers_banded, myers_banded_reference, align_inputs(P, M, P + M + 1, cuda),
+                 window_words=window_words)
+
+
+@pytest.mark.parametrize("band", (128, 256))
+@pytest.mark.parametrize("P,M", ALIGN_SHAPES)
+def test_wavefront_kernel_matches_reference(cuda, P, M, band):
+    check_kernel(banded_edit_distance, banded_edit_distance_reference,
+                 align_inputs(P, M, P + M + 2, cuda), band=band)
+
+
+def test_align_kernels_reject_unsupported_shapes(cuda):
+    args = align_inputs(8, 40, 0, cuda)
+    with pytest.raises(ValueError):
+        banded_edit_distance(*args, band=100)
+    with pytest.raises(ValueError):
+        myers_banded(*args, window_words=9)
+    with pytest.raises(ValueError):
+        myers_edit_distance(args[0], args[1].cpu(), args[2], args[3])
+
+
+def test_port_refinement_on_card_matches_cpu(cuda):
+    from muchsalsa_tpu.config import MapperConfig
+    from muchsalsa_tpu.io.fasta import SequenceStore
+    from muchsalsa_tpu.testing.simulate import add_noise, simulate
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, map_all
+
+    sim = simulate(np.random.default_rng(41), genome_length=30_000, coverage=8.0,
+                   read_length=5_000)
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    rng = np.random.default_rng(1)
+    for name, seq in sim.read_records():
+        reads.add(name, add_noise(rng, seq, 0.08))
+    cfg = dataclasses.replace(MapperConfig(), refine=True)
+    index = MinimizerIndex.build(unitigs, cfg)
+    before = myers_edit_distance.launches
+    on_card = map_all(index, reads, cfg, unitigs=unitigs, refine_device=cuda)
+    assert myers_edit_distance.launches == before + 1
+    assert on_card == map_all(index, reads, cfg, unitigs=unitigs, refine_device="cpu")
