@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's core assembler and mapper refinement once
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's core assembler, its mapper (device mapping
+and refinement) and its full pipeline once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,14 +29,30 @@ exits non-zero without its last line:
              and 256) against their plain versions on the card, on random
              pairs mutated at 0-30 % with Ns, empty queries and unrelated
              lengths, at M in {31, 32, 33, 1000, 4096} x P in {1, 33, 4096};
-             bit-equal required; median CUDA-event times at P = 4096;
+             bit-equal required; median CUDA-event times at P = 4096 (the
+             plain versions once at M = 4096, where one call takes seconds);
 7. refine  — phase 4's unitigs and reads with 8 % nanopore-style noise,
              mapped by the port's map_all with cfg.refine on the card (the
              refinement of `full`'s map stages), then refine_mappings'
              wavefront engine with the banded Myers kernel and with the
              wavefront kernel; a sample of the exact distances against the
              host's big-int Myers; then each kernel against its plain version
-             on the very arrays the map_all path packed.
+             on the very arrays the map_all path packed;
+8. device_map — the same unitigs and reads through the port's
+             map_all(device=True) on the card, identical to its host map_all
+             with refinement off and on (the exact Myers kernel launched), a
+             second call served by the store's batch cache, a repeat-rich set
+             whose reads take tier 2 (identical, tier2_reads > 0); the v2
+             tables required; the six stages' median CUDA-event times on one
+             full batch of the largest bucket; peak CUDA memory;
+9. full    — phase 4's genome as raw reads (Illumina pairs at 25x, phase 7's
+             noisy long reads) through the port's run_full_pipeline with
+             mapper.refine on: mapping on the card, then mapping on the host
+             as the oracle (refinement and the core on the card in both); the
+             three PAFs and 03.assembly.unpolished.fa byte-identical, at least
+             one contig, chain_scan and myers_full launched on the
+             device-mapping run, no jax loaded; stage walls, the device-map
+             report lines, both walls and peak CUDA memory.
 
 Then the kernel summary line, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -153,9 +169,9 @@ def align_cases():
                 {"band": b}) for b in BANDS])
 
 
-def compare_align(name, kernel, plain, args, kw, timed: bool) -> dict:
+def compare_align(name, kernel, plain, args, kw, timed: bool, plain_reps: int = 3) -> dict:
     """Kernel vs plain version on the same CUDA tensors; raises unless
-    bit-equal."""
+    bit-equal.  The comparison's own call warms the plain version up."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -169,7 +185,7 @@ def compare_align(name, kernel, plain, args, kw, timed: bool) -> dict:
            "N": args[2].shape[1], "max_abs_err": err, "refused": int((got < 0).sum())}
     if timed:
         row["ms"] = median_ms(lambda: kernel(*args, **kw), reps=10)
-        row["plain_ms"] = median_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+        row["plain_ms"] = median_ms(lambda: plain(*args, **kw), reps=plain_reps, warmup=0)
     return row
 
 
@@ -194,7 +210,9 @@ def phase_align_kernels(card: str, device) -> dict[str, int]:
             pairs = random_pairs(np.random.default_rng(M * 10_000 + P), P, M)
             args = tuple(x.to(device) for x in pack_problems(pairs))
             for name, kernel, plain, kw in align_cases():
-                row = compare_align(name, kernel, plain, args, kw, timed=P == max(ALIGN_P))
+                # at M = 4096 one plain call takes seconds: time it once
+                row = compare_align(name, kernel, plain, args, kw, timed=P == max(ALIGN_P),
+                                    plain_reps=1 if M >= 4096 else 3)
                 align_err[name] = max(align_err[name], row["max_abs_err"])
                 emit("align_kernels", card=card, **row)
     return align_err
@@ -205,7 +223,8 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int]):
     map_all with refinement on ``device``, then refine_mappings' wavefront
     engine with each of its kernels, a sample against the host oracle, and
     every kernel against its plain version on the arrays map_all packed.
-    Returns (launches of each kernel on its path, timing rows)."""
+    Returns (launches of each kernel on its path, timing rows, the mapping
+    data: unitigs, noisy reads, config, index and PAF names)."""
     from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
     from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
@@ -233,7 +252,7 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int]):
     stats: dict = {}
     reset_align_launches()
     t0 = time.perf_counter()
-    lines = map_all(index, reads, cfg, unitigs=unitigs, refine_device=device, stats=stats,
+    lines = map_all(index, reads, cfg, unitigs=unitigs, torch_device=device, stats=stats,
                     **names)
     map_all_s = time.perf_counter() - t0
     refine_launches = {"myers_full": myers_edit_distance.launches,
@@ -306,7 +325,210 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int]):
         align_err[name] = max(align_err[name], row["max_abs_err"])
         slice_rows[name] = row
         emit("refine_kernels", card=card, **row)
-    return refine_launches, slice_rows
+    return refine_launches, slice_rows, (unitigs, reads, cfg, index, names)
+
+
+def repeat_set():
+    """Unitigs sharing one repeat in 8 copies (index entries 5..16: tier 2)
+    beside unique unitigs, and reads of both."""
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import SequenceStore
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, random_genome
+
+    rng = np.random.default_rng(48)
+    rep = random_genome(rng, 300)
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for i in range(40):
+        g = random_genome(rng, 3_000)
+        if i % 5 == 0:
+            g = g[:500] + rep + g[500:]
+        unitigs.add(f"u{i}", g)
+        reads.add(f"r{i}", add_noise(rng, g[200:2_800], 0.05))
+    for i in range(8):
+        reads.add(f"rep{i}", add_noise(rng, rep, 0.05))
+    return unitigs, reads
+
+
+def time_stages(reads, index, cfg, device) -> tuple[int, dict]:
+    """Median CUDA-event ms of each of the six mapping stages on one full
+    batch (256 reads) of the bucket holding the most reads."""
+    from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import (
+        device_bucket_budgets, device_bucket_len)
+
+    by_bucket: dict[int, list[bytes]] = {}
+    for _rid, seq in reads.items():
+        by_bucket.setdefault(device_bucket_len(len(seq)), []).append(seq)
+    L, seqs = max(by_bucket.items(), key=lambda kv: len(kv[1]))
+    seqs = seqs[:256]
+    lut = np.full(256, 4, dtype=np.uint8)
+    lut[np.frombuffer(b"ACGT", dtype=np.uint8)] = np.arange(4, dtype=np.uint8)
+    codes = np.full((256, L), 4, dtype=np.uint8)
+    lens = np.zeros(256, dtype=np.int32)
+    for i, seq in enumerate(seqs):
+        codes[i, : len(seq)] = lut[np.frombuffer(seq, dtype=np.uint8)]
+        lens[i] = len(seq)
+    tables, takes = mpt.build_device_tables(
+        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
+        device=device)
+    sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, 2048, 4)
+    packed = (*mpt.pack_codes(codes, device), torch.from_numpy(lens).to(device))
+    tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
+                   min_chain_score=cfg.min_chain_score, max_hits=64, trim=trim_L,
+                   budget=16 * 256)
+    sk = mpt.sketch_device_packed(*packed, cfg.k, cfg.w)
+    sel = mpt.select_compact_device_v2(*sk, max_sel=sel_L)
+    probe = mpt.probe_candidates_device_v2(*sel[:2], tables.rp)
+    comp = mpt.compact_candidates_device_v2(*sel[:2], *probe, sel[2], max_pos=pos_L)
+    anchors = mpt.expand_anchors_device_v2(*comp, tables.jrows, tables.erows, max_per_hit=4,
+                                           hash_takes=takes)
+    stages = {
+        "sketch": lambda: mpt.sketch_device_packed(*packed, cfg.k, cfg.w),
+        "select": lambda: mpt.select_compact_device_v2(*sk, max_sel=sel_L),
+        "probe": lambda: mpt.probe_candidates_device_v2(*sel[:2], tables.rp),
+        "compact": lambda: mpt.compact_candidates_device_v2(*sel[:2], *probe, sel[2],
+                                                           max_pos=pos_L),
+        "expand": lambda: mpt.expand_anchors_device_v2(
+            *comp, tables.jrows, tables.erows, max_per_hit=4, hash_takes=takes),
+        "tail": lambda: mpt.anchors_to_hits_device_dense(*anchors, **tail_kw),
+    }
+    return L, {name: median_ms(fn, reps=10) for name, fn in stages.items()}
+
+
+def phase_device_map(card: str, data, device) -> None:
+    """Phase 8: the port's map_all(device=True) on the card against its host
+    map_all, with refinement off and on; a second call served by the batch
+    cache; a repeat-rich set through tier 2; the six stages timed."""
+    from muchsalsa_tpu_torch.device import resolve_device
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+    from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+
+    unitigs, reads, cfg, index, names = data
+    plain = dataclasses.replace(cfg, refine=False)
+    t0 = time.perf_counter()
+    host = mt.map_all(index, reads, plain, **names)
+    host_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    for call in ("cold", "cached"):
+        t0 = time.perf_counter()
+        got = mt.map_all(index, reads, plain, device=True, torch_device=device, **names)
+        walls[call] = time.perf_counter() - t0
+        if got != host:
+            raise AssertionError(f"device mapping ({call}) differs from host mapping: "
+                                 f"{len(got)} against {len(host)} lines")
+        if not mt.DEVICE_MAP_STATS["v2"]:
+            raise AssertionError("the index broke the v2 packing bounds")
+        stats = dict(mt.DEVICE_MAP_STATS)
+        emit("device_map", card=card, call=call, wall_s=walls[call], host_wall_s=host_s,
+             lines=len(got), stats=stats)
+    cache = getattr(reads, mt._CACHE_ATTR)[str(resolve_device(device))][1]
+    if not cache:
+        raise AssertionError("device mapping cached no read batch")
+    peak = torch.cuda.max_memory_allocated()
+
+    refine = dataclasses.replace(cfg, refine=True)
+    myers_edit_distance.launches = 0
+    t0 = time.perf_counter()
+    refined_dev = mt.map_all(index, reads, refine, unitigs=unitigs, device=True,
+                             torch_device=device, **names)
+    refined_dev_s = time.perf_counter() - t0
+    launches = myers_edit_distance.launches
+    t0 = time.perf_counter()
+    refined_host = mt.map_all(index, reads, refine, unitigs=unitigs, torch_device=device,
+                              **names)
+    refined_host_s = time.perf_counter() - t0
+    if refined_dev != refined_host or launches == 0:
+        raise AssertionError(f"refined device mapping differs from refined host mapping "
+                             f"(exact Myers launches {launches})")
+
+    rep_unitigs, rep_reads = repeat_set()
+    rep_index = mt.MinimizerIndex.build(rep_unitigs, plain)
+    want = mt.map_all(rep_index, rep_reads, plain)
+    got = mt.map_all(rep_index, rep_reads, plain, device=True, torch_device=device)
+    rep_stats = dict(mt.DEVICE_MAP_STATS)
+    if got != want or rep_stats["tier2_reads"] == 0:
+        raise AssertionError(f"repeat set: identical={got == want}, stats {rep_stats}")
+
+    bucket, stage_ms = time_stages(reads, index, cfg, device)
+    emit("device_map", card=card, refined_wall_s=refined_dev_s,
+         refined_host_wall_s=refined_host_s, myers_full_launches=launches,
+         cached_batches=len(cache), cuda_peak_bytes=peak, repeat_set_stats=rep_stats,
+         repeat_set_lines=len(got), stage_bucket=bucket, stage_ms=stage_ms,
+         identical=True)
+
+
+def write_fasta(path: Path, records) -> None:
+    with open(path, "wb") as fh:
+        for name, seq in records:
+            fh.write(b">" + name.encode() + b"\n" + seq + b"\n")
+
+
+def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
+    """Phase 9: raw reads -> assembly through the port's run_full_pipeline,
+    mapping on the card, against the same pipeline mapping on the host;
+    refinement and the core on the card in both.  Returns the chain_scan
+    and myers_full launches of the device-mapping run."""
+    from muchsalsa_tpu_torch.config import Config
+    from muchsalsa_tpu_torch.ops.chain_scan import chain_scan
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+    from muchsalsa_tpu_torch.pipeline.full import run_full_pipeline
+    from muchsalsa_tpu_torch.testing.simulate import illumina_pairs
+
+    t0 = time.perf_counter()
+    data = work / "full_data"
+    data.mkdir(parents=True)
+    nano = data / "nanopore.fa"
+    write_fasta(nano, ((reads.registry.name(rid), seq) for rid, seq in reads.items()))
+    pairs = illumina_pairs(np.random.default_rng(2), sim.genome, coverage=25.0)
+    illu1, illu2 = data / "illu_1.fa", data / "illu_2.fa"
+    write_fasta(illu1, ((f"p{i}/1", a) for i, (a, b) in enumerate(pairs)))
+    write_fasta(illu2, ((f"p{i}/2", b) for i, (a, b) in enumerate(pairs)))
+    data_s = time.perf_counter() - t0
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, mapper=dataclasses.replace(cfg.mapper, refine=True))
+
+    runs = {}
+    for name, device_map in (("device_map", True), ("host_map", False)):
+        out = work / f"full_{name}"
+        torch.cuda.reset_peak_memory_stats()
+        chain_scan.launches = 0
+        myers_edit_distance.launches = 0
+        t0 = time.perf_counter()
+        run_full_pipeline(illu1, illu2, nano, out, cfg, device=device, device_map=device_map)
+        wall = time.perf_counter() - t0
+        if "jax" in sys.modules:
+            raise AssertionError("the port's full pipeline loaded jax")
+        manifest = json.loads((out / "manifest.json").read_text())
+        runs[name] = {
+            "out": out, "wall_s": wall, "cuda_peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"chain_scan": chain_scan.launches,
+                         "myers_full": myers_edit_distance.launches},
+            "stages_s": {k: v["elapsed_s"] for k, v in manifest.items()},
+            "report": [ln for ln in (out / "report.txt").read_text().splitlines()
+                       if ln.startswith("device ")],
+        }
+    dev, host = runs["device_map"], runs["host_map"]
+    names = ("01_unitigs.paf", "01_contigs_corrected.paf", "02_contigs_corrected.scrubbed.paf",
+             "03.assembly.unpolished.fa")
+    identical = {n: (dev["out"] / n).read_bytes() == (host["out"] / n).read_bytes()
+                 for n in names}
+    final = (dev["out"] / names[-1]).read_bytes()
+    contigs = final.count(b">")
+    emit("full", card=card, genome_mb=len(sim.genome) / 1e6, illumina_pairs=len(pairs),
+         nanopore_reads=len(reads), data_s=data_s, contigs=contigs,
+         assembly_bases=len(final) - final.count(b"\n") - sum(
+             len(ln) for ln in final.split(b"\n") if ln.startswith(b">")),
+         identical=identical,
+         **{f"{k}_{f}": v[f] for k, v in runs.items()
+            for f in ("wall_s", "cuda_peak_bytes", "launches", "stages_s", "report")})
+    if not all(identical.values()):
+        raise AssertionError(f"full with device mapping differs from host mapping: {identical}")
+    if contigs < 1:
+        raise AssertionError("the full pipeline assembled no contig")
+    if min(dev["launches"].values()) == 0:
+        raise AssertionError(f"the full pipeline's kernels did not launch: {dev['launches']}")
+    return dev["launches"]["chain_scan"], dev["launches"]["myers_full"]
 
 
 def with_device_config(**device_fields):
@@ -434,7 +656,15 @@ def main() -> int:
     align_err = phase_align_kernels(card, torch.device("cuda"))
 
     # --- 7. refinement on the card, through the port's entry points
-    refine_launches, slice_rows = phase_refine(card, sim, torch.device("cuda"), align_err)
+    refine_launches, slice_rows, map_data = phase_refine(
+        card, sim, torch.device("cuda"), align_err)
+
+    # --- 8. device mapping on the card, through the port's map_all
+    phase_device_map(card, map_data, "cuda")
+
+    # --- 9. raw reads -> assembly, mapping on the card
+    with tempfile.TemporaryDirectory(prefix="ms_chip_smoke_full_") as td:
+        phase_full(card, Path(td), sim, map_data[1], "cuda")
 
     if "jax" in sys.modules:
         raise AssertionError("chip_smoke loaded jax")

@@ -1,0 +1,95 @@
+"""Batched minimizer sketch on a torch device.
+
+Port of ``muchsalsa_tpu/ops/minimizer_jax.py::fmix32_jnp`` (:21) and
+``minimizer_sketch`` (:32-88): canonical k-mer packing, fmix32 hashing and
+leftmost-minimum window selection over a padded ``(R, L)`` read batch, the
+seeding stage of device mapping.
+
+The JAX function carries hashes as uint32.  Here they are int64 holding
+values in ``[0, 2**32)``: every shift and sum is masked to 32 bits, and
+fmix32's multiplies are split into 16-bit halves of the constant, so no
+product reaches 2**48 and nothing relies on signed wrap-around.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2**32`` for ``x`` in ``[0, 2**32)`` and a 32-bit
+    constant ``c``, with every product below 2**48."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & MASK32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finaliser on int64 values in ``[0, 2**32)``."""
+    x = x.to(torch.int64) & MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _one_hot_argmin(h: torch.Tensor) -> torch.Tensor:
+    """(R, Lk) bool: the first minimal position of each row."""
+    amin = torch.argmin(h, dim=1)
+    out = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
+    out[torch.arange(h.shape[0], device=h.device), amin] = True
+    return out
+
+
+def minimizer_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int = 15, w: int = 5):
+    """Minimizer sketch of a padded read batch.
+
+    ``codes``: (R, L) integer codes, pad = 4 (non-ACGT); ``lens``: (R,).
+    Returns (selected, hashes, strands), each (R, L - k + 1): ``selected``
+    marks k-mer start positions chosen as minimizers, ``hashes`` (int64,
+    32-bit values; 0xFFFFFFFF at invalid positions) and ``strands`` are the
+    per-position canonical values.
+    """
+    R, L = codes.shape
+    Lk = L - k + 1
+    dev = codes.device
+    c = codes.to(torch.int64)
+    lens = lens.to(dev, torch.int64)
+
+    fwd = torch.zeros((R, Lk), dtype=torch.int64, device=dev)
+    rc = torch.zeros((R, Lk), dtype=torch.int64, device=dev)
+    bad = torch.zeros((R, Lk), dtype=torch.int64, device=dev)
+    for j in range(k):
+        col = c[:, j:j + Lk]
+        fwd = ((fwd << 2) | (col & 3)) & MASK32
+        rc = (rc | (((3 - col) & 3) << (2 * j))) & MASK32
+        bad = bad + (col >= 4)
+
+    pos = torch.arange(Lk, device=dev)[None, :]
+    valid = (bad == 0) & (pos + k <= lens[:, None])
+
+    canonical = torch.minimum(fwd, rc)
+    strand = fwd <= rc
+    h = torch.where(valid, fmix32(canonical), torch.full_like(canonical, MASK32))
+
+    lk_real = lens - (k - 1)  # per-read number of k-mer positions
+
+    if Lk <= w:
+        selected = _one_hot_argmin(h)
+    else:
+        Wn = Lk - w + 1
+        amin = torch.argmin(h.unfold(1, w, 1), dim=-1)  # leftmost min per window
+        # only windows fully inside the real read exist on the host path
+        win_ok = torch.arange(Wn, device=dev)[None, :] <= (lk_real[:, None] - w)
+        selected = torch.zeros((R, Lk), dtype=torch.bool, device=dev)
+        for j in range(w):
+            selected[:, j:j + Wn] |= (amin == j) & win_ok
+        # short reads (1 <= positions <= w): single leftmost global min
+        small = (lk_real >= 1) & (lk_real <= w)
+        selected |= _one_hot_argmin(h) & small[:, None]
+
+    return selected & valid, h, strand

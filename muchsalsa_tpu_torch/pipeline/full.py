@@ -1,0 +1,223 @@
+"""The full pipeline on a torch device: raw reads -> unpolished assembly.
+
+Port of ``muchsalsa_tpu/pipeline/full.py::run_full_pipeline`` (:103-325):
+
+  ① k-mer filter of the Illumina reads     host (``pipeline.kmer``)
+  ② unitigs                                host (``pipeline.dbg``)
+  ③ map unitigs onto the long reads        the port's ``map_all``
+  ④ unitig coverage filter                 host (``pipeline.unitig_filter``)
+  ⑤ map the corrected unitigs              the port's ``map_all``
+  ⑥ scrub the long reads                   host (``pipeline.scrubber``)
+  ⑦ map onto the scrubbed reads            the port's ``map_all``
+  ⑧ core assembly                          the port's ``assemble``
+  ⑨ copy the target contigs to ``03.assembly.unpolished.fa``
+
+Stages ③⑤⑦ map on ``device`` when ``device_map`` is set (else on the host)
+and refine on ``device`` when ``config.mapper.refine`` is set; stage ⑧ runs
+edges and chaining on ``device``.  Every other stage is the JAX package's
+host code, imported unchanged.  The device legs of stages ①②⑥ are not
+ported, so their flags raise.  Stages checkpoint through ``StageRunner``
+manifests (a rerun skips what is up to date; the manifest keys do not hold
+the placement, as in the JAX package).
+"""
+
+from __future__ import annotations
+
+import shutil
+from pathlib import Path
+
+import torch
+
+from muchsalsa_tpu.io.fasta import SequenceStore, write_fasta
+from muchsalsa_tpu.pipeline.full import _read_pairs
+from muchsalsa_tpu.pipeline.stages import StageRunner
+from muchsalsa_tpu_torch.config import DEFAULT_CONFIG, Config
+from muchsalsa_tpu_torch.device import resolve_device
+
+SENTINEL = "__sentinel__\t1\t0\t1\t+\t__sentinel__\t1\t0\t1\t0\t1\t0"
+
+
+def run_full_pipeline(
+    illumina1: str | Path,
+    illumina2: str | Path | None,
+    nanopore: str | Path,
+    outdir: str | Path,
+    config: Config = DEFAULT_CONFIG,
+    kmer_filter_k: int | None = None,
+    unitig_k: int = 31,
+    device: str | torch.device = "cuda",
+    device_map: bool = True,
+    device_kmer: bool = False,
+    device_scrub: bool = False,
+    device_dbg: bool = False,
+) -> Path:
+    """Run the pipeline into ``outdir``; returns the final assembly's path.
+
+    ``device`` (default ``cuda``, which raises without a card) is where the
+    map stages' device mapping and refinement and the core's edges and
+    chaining run; ``device_map=False`` maps on the host instead.
+    ``device_kmer``, ``device_dbg`` and ``device_scrub`` raise
+    ``NotImplementedError``: those device legs are not ported yet.
+    """
+    for flag, on in (("device_kmer", device_kmer), ("device_dbg", device_dbg),
+                     ("device_scrub", device_scrub)):
+        if on:
+            raise NotImplementedError(
+                f"{flag}: the k-mer, DBG and scrub device legs are not ported to "
+                "muchsalsa_tpu_torch yet (ROADMAP.md §1 item 10); run them on the host")
+    dev = resolve_device(device)
+
+    out = Path(outdir)
+    out.mkdir(parents=True, exist_ok=True)
+    runner = StageRunner(out)
+    report = out / "report.txt"
+    with open(report, "a") as fh:
+        fh.write(f"device placement: map={device_map} kmer=False scrub=False dbg=False "
+                 f"(torch device {dev})\n")
+
+    illumina1 = Path(illumina1)
+    illumina2 = Path(illumina2) if illumina2 else None
+    nanopore = Path(nanopore)
+    k_filter = kmer_filter_k or config.pipeline.kmer_k_filter
+
+    filtered_fa = out / "01_illu_filtered.fa"
+    unitigs_fa = out / "01_unitigs.fa"
+    paf1 = out / "01_unitigs.paf"
+    corrected_fa = out / "01_unitigs_corrected.fa"
+    paf2 = out / "01_contigs_corrected.paf"
+    scrubbed_fa = out / "02_scrubbed.fa"
+    paf3 = out / "02_contigs_corrected.scrubbed.paf"
+    core_out = out / "core"
+    final_fa = out / "03.assembly.unpolished.fa"
+
+    # ① k-mer filter of Illumina reads
+    def stage_kmer():
+        from muchsalsa_tpu.pipeline.kmer import (
+            abundance_threshold, count_kmers, filter_read_pairs, high_abundance_kmers,
+            histogram)
+
+        pairs = _read_pairs(illumina1, illumina2)
+        uniq, counts = count_kmers([s for p in pairs for s in p if s], k_filter)
+        th = abundance_threshold(histogram(counts))
+        bad = high_abundance_kmers(uniq, counts, max(th, 2))
+        kept = filter_read_pairs(pairs, bad, k_filter)
+        with open(report, "a") as fh:
+            fh.write(f"abundance threshold for k-mer filtering: {th}\n")
+            fh.write(f"read pairs kept: {len(kept)}/{len(pairs)}\n")
+        records = []
+        for i, (a, b) in enumerate(kept):
+            records.append((f"pair{i}/1", a))
+            if b:
+                records.append((f"pair{i}/2", b))
+        write_fasta(filtered_fa, records)
+
+    runner.run("kmer_filter", [p for p in (illumina1, illumina2) if p], [filtered_fa],
+               stage_kmer, {"k": k_filter})
+
+    # ② unitig construction
+    def stage_unitigs():
+        from muchsalsa_tpu.pipeline.dbg import build_unitigs
+
+        store = SequenceStore.from_file(filtered_fa)
+        unitigs = build_unitigs(
+            [store.sequence(i) for i in store.ids()], k=unitig_k, min_count=2,
+            min_length=config.pipeline.min_unitig_length, device=False)
+        write_fasta(unitigs_fa, ((f"unitig_{i}", u) for i, u in enumerate(unitigs)))
+
+    runner.run("unitigs", [filtered_fa], [unitigs_fa], stage_unitigs, {"k": unitig_k})
+
+    # stores load once per path, so the packed read batches that device
+    # mapping keeps on a store serve all three map stages
+    _stores: dict[Path, SequenceStore] = {}
+
+    def load_store(path: Path) -> SequenceStore:
+        store = _stores.get(path)
+        if store is None:
+            store = _stores[path] = SequenceStore.from_file(path)
+        return store
+
+    def map_stage(query_fa: Path, target_fa: Path, out_paf: Path):
+        from muchsalsa_tpu_torch.pipeline.mapper_torch import (
+            DEVICE_MAP_STATS, MinimizerIndex, map_all, write_paf)
+
+        unitigs = load_store(query_fa)
+        reads = load_store(target_fa)
+        index = MinimizerIndex.build(unitigs, config.mapper)
+        DEVICE_MAP_STATS.clear()
+        lines = map_all(
+            index, reads, config.mapper,
+            unitig_names=lambda u: unitigs.registry.name(u),
+            read_names=lambda r: reads.registry.name(r),
+            unitigs=unitigs, device=device_map, torch_device=dev)
+        if device_map and "total_reads" in DEVICE_MAP_STATS:
+            # reads mapped on the host instead: a high rate means the
+            # device run quietly became a host run
+            tot = DEVICE_MAP_STATS["total_reads"]
+            ovf = DEVICE_MAP_STATS["overflow_reads"]
+            with open(report, "a") as fh:
+                fh.write(
+                    f"device map {out_paf.name}: {tot - ovf}/{tot} reads on device, "
+                    f"{ovf} overflow->host ({100.0 * ovf / max(tot, 1):.1f}%), "
+                    f"{DEVICE_MAP_STATS['tier2_reads']} through tier 2, "
+                    f"v2={DEVICE_MAP_STATS['v2']}\n")
+        # the core parser drops the final PAF line by reference parity:
+        # terminate with a sentinel so no real mapping is lost
+        write_paf(lines + [SENTINEL], out_paf)
+
+    # ③ map unitigs onto long reads
+    runner.run("map_unitigs", [unitigs_fa, nanopore], [paf1],
+               lambda: map_stage(unitigs_fa, nanopore, paf1))
+
+    # ④ unitig coverage filter
+    def stage_unitig_filter():
+        from muchsalsa_tpu.pipeline.unitig_filter import filter_unitigs
+
+        store = SequenceStore.from_file(unitigs_fa)
+        seqs = {store.registry.name(i): store.sequence(i) for i in store.ids()}
+        lines = [ln for ln in paf1.read_text().splitlines() if ln and "__sentinel__" not in ln]
+        corrected, stats = filter_unitigs(
+            lines, seqs, config.pipeline.unitig_iqr_multiplier,
+            config.pipeline.min_unitig_length)
+        with open(report, "a") as fh:
+            fh.write(">>> unitig filter\n")
+            fh.write(f"upper_outlier: {stats.cutoff}\nQ3: {stats.q3}\n")
+            fh.write(f"#all unitigs: {stats.all_count}\n#outliers: {stats.outlier_count}\n")
+            fh.write(f"#rescued outliers: {stats.rescued_count}\n")
+        write_fasta(corrected_fa, corrected)
+
+    runner.run("unitig_filter", [paf1, unitigs_fa], [corrected_fa], stage_unitig_filter)
+
+    # ⑤ re-map corrected unitigs
+    runner.run("map_corrected", [corrected_fa, nanopore], [paf2],
+               lambda: map_stage(corrected_fa, nanopore, paf2))
+
+    # ⑥ scrub long reads
+    def stage_scrub():
+        from muchsalsa_tpu.pipeline.scrubber import scrub_reads
+
+        reads = SequenceStore.from_file(nanopore)
+        lines = [ln for ln in paf2.read_text().splitlines() if ln and "__sentinel__" not in ln]
+        write_fasta(scrubbed_fa, scrub_reads(lines, reads, config.scrub, config.mapper,
+                                             device=False))
+
+    runner.run("scrub", [paf2, nanopore], [scrubbed_fa], stage_scrub)
+
+    # ⑦ map corrected unitigs onto scrubbed reads
+    runner.run("map_scrubbed", [corrected_fa, scrubbed_fa], [paf3],
+               lambda: map_stage(corrected_fa, scrubbed_fa, paf3))
+
+    # mapping stages done: release the stores and their device batches
+    _stores.clear()
+
+    # ⑧ core assembly
+    def stage_core():
+        from muchsalsa_tpu_torch.assemble.driver import assemble
+
+        assemble(paf3, corrected_fa, scrubbed_fa, core_out, config, device=dev)
+
+    runner.run("core_assembly", [paf3, corrected_fa, scrubbed_fa],
+               [core_out / "temp_1.target.fa"], stage_core)
+
+    # ⑨ final copy (pipeline.sh:181)
+    shutil.copyfile(core_out / "temp_1.target.fa", final_fa)
+    return final_fa

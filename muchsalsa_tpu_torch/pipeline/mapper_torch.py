@@ -1,32 +1,295 @@
-"""The mapper's alignment refinement on a torch device, and ``map_all``.
+"""The mapper on a torch device: device mapping, alignment refinement and
+``map_all``.
 
-Port of ``muchsalsa_tpu/pipeline/mapper.py::refine_mappings`` (:854-927) and
-``map_all`` (:343-397).  The host mapper (``MinimizerIndex``, ``map_batch``,
-``map_read``, the fork pool and ``write_paf``) is imported from the JAX
-package, which loads no JAX for it; only refinement and the PAF formatting
-loop live here.  Refinement packs every mapped region into one batch
+Port of ``muchsalsa_tpu/pipeline/mapper.py::map_all_with_device`` (:454-847),
+``refine_mappings`` (:854-927) and ``map_all`` (:343-397).  The host mapper
+(``MinimizerIndex``, ``map_batch``, ``map_read``, the fork pool, the length
+buckets and their budgets, ``write_paf``) is imported from the JAX package,
+which loads no JAX for it.
+
+Device mapping runs the six v2 stages of ``ops.mapping_torch`` per batch of
+one length bucket and pulls each batch's hits in the dense layout.  Reads
+that break a static budget take a second, wider tier on the device or fall
+back to the host ``map_read``; either way the result equals ``map_read``'s.
+Refinement packs every mapped region into one batch
 (``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
-on the given device and writes ``max(len q, len t) - d`` back into each
-mapping's ``matches``.
+and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
+import numpy as np
 import torch
 
+from muchsalsa_tpu import native
 from muchsalsa_tpu.config import MapperConfig
 from muchsalsa_tpu.io.fasta import SequenceStore
 from muchsalsa_tpu.pipeline.mapper import (
-    _POOL_STATE, Mapping, MinimizerIndex, _pool_map_one, map_batch, map_read, write_paf)
-from muchsalsa_tpu.utils.seq import reverse_complement
+    _POOL_STATE, Mapping, MinimizerIndex, _pool_map_one, device_bucket_budgets,
+    device_bucket_len, map_batch, map_read, write_paf)
+from muchsalsa_tpu.utils.seq import encode_2bit, reverse_complement
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, pack_problems
+from muchsalsa_tpu_torch.ops.mapping_torch import (
+    HIT_FIELDS, anchors_to_hits_device_dense, anchors_to_hits_device_packed, build_device_tables,
+    compact_candidates_device_v2, expand_anchors_device_v2, pack_codes,
+    probe_candidates_device_v2, select_compact_device_v2, sketch_device_packed, u32_tensor,
+    unpack_hits)
 from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 
 __all__ = [
-    "MinimizerIndex", "SequenceStore", "map_all", "map_batch", "refine_mappings", "write_paf"]
+    "DEVICE_MAP_STATS", "DEVICE_MAP_STATS_CUM", "MinimizerIndex", "SequenceStore", "map_all",
+    "map_all_with_device", "map_batch", "refine_mappings", "write_paf"]
+
+# the last map_all_with_device call's counters (device, v2, total_reads,
+# overflow_reads, tier2_reads, dense_repulls, ...), and the sums of the
+# counting keys over every call since the caller last cleared it
+DEVICE_MAP_STATS: dict = {}
+DEVICE_MAP_STATS_CUM: dict = {}
+_CUM_KEYS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
+# the per-store cache of packed read batches on a device; its own attribute,
+# so a store mapped by both packages never hands one package's arrays to the other
+_CACHE_ATTR = "_torch_dev_batch_cache"
+
+
+def _batch_cache(reads: SequenceStore, dev: torch.device) -> dict:
+    """The LRU dict of packed batches that ``reads`` keeps for ``dev``,
+    emptied when the store has changed since it was filled."""
+    caches = getattr(reads, _CACHE_ATTR, None)
+    if caches is None:
+        caches = {}
+        setattr(reads, _CACHE_ATTR, caches)
+    version = getattr(reads, "version", 0)
+    entry = caches.get(str(dev))
+    if entry is None or entry[0] != version:
+        entry = caches[str(dev)] = (version, {})
+    return entry[1]
+
+
+def _mappings_of_rows(rows) -> list[Mapping]:
+    """Mappings of hit rows ``[HIT_FIELDS]``."""
+    return [Mapping(unitig=int(r[0]), strand=bool(r[1]), q_start=int(r[2]), q_end=int(r[3]),
+                    t_start=int(r[4]), t_end=int(r[5]), matches=int(r[6]),
+                    n_anchors=int(r[7]))
+            for r in rows]
+
+
+def map_all_with_device(
+    index: MinimizerIndex,
+    reads: SequenceStore,
+    cfg: MapperConfig,
+    batch_reads: int = 256,
+    max_pos: int = 2048,
+    max_per_hit: int = 4,
+    max_hits: int = 64,
+    hit_budget: int | None = None,
+    prebuilt=None,
+    device: str | torch.device = "cuda",
+) -> list[tuple[int, list[Mapping]]]:
+    """Map every read on ``device``; the result equals per-read
+    ``map_read``.
+
+    Reads go in length buckets (``device_bucket_len``) of ``batch_reads``
+    rows with per-bucket budgets (``device_bucket_budgets``).  A read whose
+    only violation is a minimizer with more than ``max_per_hit`` entries,
+    or whose widths tier 2 can grow, is mapped again on the device with the
+    expansion cap ``MS_TPU_MAP_TIER2`` (default 16, at most 30; 0 turns it
+    off) and twice the widths; every other violating read is mapped on the
+    host.  A batch with more hits than ``hit_budget`` (default 16 per row)
+    is pulled again in the padded layout.  ``prebuilt`` is the
+    ``build_device_tables`` result for ``index`` on ``device``.  Where the
+    index breaks the v2 packing bounds, every read is mapped on the host
+    (the v1 join is not ported) and the stats say ``v2=False``.
+
+    Packed read batches stay on the device in a cache on the store (LRU,
+    ``MS_TPU_DEV_CACHE_MB`` MiB, default 2048), so later calls on the same
+    store reuse them; tier-2 batches depend on the index and never cache.
+    Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``.
+    """
+    dev = resolve_device(device)
+    items = list(reads.items())
+    if not items:
+        return []
+    built = prebuilt
+    if built is None and max_per_hit < 31:  # v2 count-saturation bound
+        built = build_device_tables(index.hashes, index.offsets, index.entry_unitig,
+                                    index.entry_pos, index.entry_strand, device=dev)
+    DEVICE_MAP_STATS.update(
+        device=str(dev), n_devices=1, meshed=False, batch_reads=batch_reads,
+        v2=built is not None, total_reads=len(items), overflow_reads=0, dense_repulls=0,
+        tier2_reads=0)
+    results: dict[int, list[Mapping]] = {}
+    if built is None:
+        for rid, seq in items:
+            results[rid] = map_read(index, seq, cfg)
+        DEVICE_MAP_STATS["overflow_reads"] = len(items)
+    else:
+        _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
+                max_per_hit, max_hits, hit_budget)
+    for k2 in _CUM_KEYS:
+        DEVICE_MAP_STATS_CUM[k2] = DEVICE_MAP_STATS_CUM.get(k2, 0) + DEVICE_MAP_STATS[k2]
+    return [(rid, results[rid]) for rid, _ in items]
+
+
+def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
+            max_hits, hit_budget):
+    """The v2 pass of ``map_all_with_device``: fills ``results``."""
+    tables, hash_takes = built
+    if hit_budget is None:
+        hit_budget = 16 * batch_reads
+    # the dense tail clamps identically: a budget above R*max_hits can
+    # never be filled
+    hit_budget = min(hit_budget, batch_reads * max_hits)
+    tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
+                   min_chain_score=cfg.min_chain_score, max_hits=max_hits)
+
+    buckets: dict[int, list[tuple[int, bytes]]] = {}
+    for rid, seq in items:
+        buckets.setdefault(device_bucket_len(len(seq)), []).append((rid, seq))
+
+    dev_cache = _batch_cache(reads, dev)
+    cache_cap = int(os.environ.get("MS_TPU_DEV_CACHE_MB", "2048")) << 20
+
+    def cache_put(key, tensors):
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        if nbytes > cache_cap:
+            return
+        used = sum(sz for _v, sz in dev_cache.values())
+        while dev_cache and used + nbytes > cache_cap:
+            _k, (_v, sz) = next(iter(dev_cache.items()))
+            del dev_cache[_k]
+            used -= sz
+        dev_cache[key] = (tensors, nbytes)
+
+    def packed_batch(chunk, L, s, cache=True):
+        # tier-2 batches never cache: which reads they hold depends on the
+        # index, so a positional key would alias them across calls
+        key = (L, s, batch_reads)
+        if cache and key in dev_cache:
+            dev_cache[key] = dev_cache.pop(key)  # LRU: move to the back
+            return dev_cache[key][0]
+        seqs = [seq for _rid, seq in chunk]
+        built_np = (native.pack_reads_2bit(seqs, L, n_rows=batch_reads)
+                    if native.available() else None)
+        if built_np is not None:
+            packed, nmask, lens = built_np
+            tensors = (u32_tensor(packed, dev), u32_tensor(nmask, dev))
+        else:
+            codes = np.full((batch_reads, L), 4, dtype=np.uint8)
+            lens = np.zeros(batch_reads, dtype=np.int32)
+            for i, seq in enumerate(seqs):
+                c = encode_2bit(seq)
+                codes[i, : len(c)] = c
+                lens[i] = len(c)
+            tensors = pack_codes(codes, dev)
+        tensors = (*tensors, torch.from_numpy(lens).to(dev))
+        if cache:
+            cache_put(key, tensors)
+        return tensors
+
+    def dispatch(chunk, L, s, mph=max_per_hit, pos_cap=max_pos, cache_batch=True):
+        """The six stages of one batch, queued on the device; returns the
+        pending pull (chunk, flat hits on the host, its ready event,
+        anchors, trim, cap)."""
+        packed_d, nmask_d, lens_d = packed_batch(chunk, L, s, cache=cache_batch)
+        sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, pos_cap, mph)
+        selected, h, strand = sketch_device_packed(packed_d, nmask_d, lens_d, cfg.k, cfg.w)
+        skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
+        rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
+        sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
+        anchors = expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=mph,
+                                           hash_takes=hash_takes)
+        flat = anchors_to_hits_device_dense(*anchors, trim=trim_L, budget=hit_budget,
+                                            **tail_kw)
+        # start the copy back now, so the host collects this batch while
+        # the device runs the next one
+        ready = None
+        if dev.type == "cuda":
+            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            flat = host
+        return chunk, flat, ready, anchors, trim_L, mph
+
+    # second-tier expansion cap (0 disables): reads whose violation a
+    # wider cap or wider widths fix go through the device again
+    tier2_mph = min(int(os.environ.get("MS_TPU_MAP_TIER2", "16")), 30)  # < 31: saturation
+    if tier2_mph <= max_per_hit:
+        tier2_mph = 0
+    deferred: dict[int, list[tuple[int, bytes]]] = {}
+
+    def collect(pending):
+        chunk, flat, ready, anchors, trim, mph = pending
+        if ready is not None:
+            ready.synchronize()
+        flat_np = flat.numpy()
+        R = batch_reads
+        n_hits = flat_np[:R]
+        width_ovf = flat_np[R : 2 * R] != 0
+        max_ecnt = flat_np[2 * R : 3 * R]
+        counts = np.minimum(n_hits, max_hits)
+        if int(counts.sum()) > hit_budget:
+            # over the dense budget: pull the padded tail instead (cap
+            # violations fold into its overflow -> host)
+            DEVICE_MAP_STATS["dense_repulls"] += 1
+            collect_padded(chunk, anchors_to_hits_device_packed(
+                *anchors, trim=trim, per_hit_cap=mph, **tail_kw))
+            return
+        dense_np = flat_np[3 * R :].reshape(hit_budget, 9)[:, 1:]  # drop flat_slot
+        offs = np.zeros(len(counts) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offs[1:])
+        for i, (rid, seq) in enumerate(chunk):
+            if width_ovf[i] or max_ecnt[i] > mph:
+                # tier 2 widens the cap and the candidate/anchor widths;
+                # reads hot past its cap, or whose widths it cannot grow
+                # with no cap violation to fix, go to the host
+                Lb = device_bucket_len(len(seq))
+                t2_budgets = device_bucket_budgets(Lb, cfg.k, 2 * max_pos, tier2_mph)
+                t1_budgets = device_bucket_budgets(Lb, cfg.k, max_pos, mph)
+                tier2_helps = max_ecnt[i] > mph or t2_budgets != t1_budgets
+                if mph < tier2_mph and max_ecnt[i] <= tier2_mph and tier2_helps:
+                    deferred.setdefault(Lb, []).append((rid, seq))
+                    DEVICE_MAP_STATS["tier2_reads"] += 1
+                else:
+                    DEVICE_MAP_STATS["overflow_reads"] += 1
+                    results[rid] = map_read(index, seq, cfg)
+                continue
+            results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
+
+    def collect_padded(chunk, out):
+        out = unpack_hits(out, max_hits)
+        rows = np.stack([out[f] for f in HIT_FIELDS], axis=-1)  # (R, max_hits, 8)
+        for i, (rid, seq) in enumerate(chunk):
+            if out["overflow"][i]:
+                DEVICE_MAP_STATS["overflow_reads"] += 1
+                results[rid] = map_read(index, seq, cfg)
+                continue
+            results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
+
+    def run(batches, **kw):
+        pending = None
+        for chunk, L, s in batches:
+            nxt = dispatch(chunk, L, s, **kw)
+            if pending is not None:
+                collect(pending)
+            pending = nxt
+        if pending is not None:
+            collect(pending)
+
+    run((members[s : s + batch_reads], L, s)
+        for L, members in sorted(buckets.items())
+        for s in range(0, len(members), batch_reads))
+    # tier 2 over the deferred reads: the wider cap and twice the widths;
+    # its own violations go to the host (mph == tier2_mph there)
+    if deferred:
+        run(((members[s : s + batch_reads], L, ("t2", L, j))
+             for L, members in sorted(deferred.items())
+             for j, s in enumerate(range(0, len(members), batch_reads))),
+            mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
 
 
 def refine_mappings(
@@ -108,29 +371,29 @@ def map_all(
     unitigs: SequenceStore | None = None,
     processes: int | None = None,
     device: bool = False,
-    refine_device: str | torch.device = "cuda",
+    torch_device: str | torch.device = "cuda",
     stats: dict | None = None,
 ) -> list[str]:
     """Map every read; emit PAF lines (query = unitig, target = read).
 
-    With ``cfg.refine`` (and ``unitigs`` provided), match counts are
-    alignment-refined by ``refine_mappings`` on ``refine_device`` (default
-    ``cuda``, which raises when there is no card).  ``processes`` > 1 fans
-    reads out over a fork-shared worker pool.  Device mapping
-    (``device=True``) is not ported yet and raises.  ``stats``, when given,
-    receives the mapping wall and ``refine_mappings``' statistics.
+    ``device=True`` maps on ``torch_device`` (``map_all_with_device``);
+    otherwise the host maps.  With ``cfg.refine`` (and ``unitigs``
+    provided), match counts are alignment-refined by ``refine_mappings`` on
+    ``torch_device``.  The default ``cuda`` raises when there is no card;
+    ``torch_device`` is not touched when neither runs.  ``processes`` > 1
+    fans host mapping out over a fork-shared worker pool.  ``stats``, when
+    given, receives the mapping wall and ``refine_mappings``' statistics.
     """
-    if device:
-        raise NotImplementedError(
-            "device mapping is not ported to muchsalsa_tpu_torch yet "
-            "(ROADMAP.md §1 item 6); map on the host with device=False")
     uname = unitig_names or (lambda uid: f"u{uid}")
     rname = read_names or (lambda rid: f"r{rid}")
 
     if processes is None:
         processes = 1
     t0 = time.perf_counter()
-    per_read = map_batch(index, reads, cfg, threads=0 if processes <= 1 else processes)
+    if device:
+        per_read = map_all_with_device(index, reads, cfg, device=torch_device)
+    else:
+        per_read = map_batch(index, reads, cfg, threads=0 if processes <= 1 else processes)
     if per_read is None and processes > 1:
         import multiprocessing as mp
 
@@ -146,7 +409,7 @@ def map_all(
         stats["map_s"] = time.perf_counter() - t0
     if cfg.refine and unitigs is not None:
         refine_mappings(per_read, reads, unitigs, band=cfg.refine_band,
-                        device=refine_device, stats=stats)
+                        device=torch_device, stats=stats)
 
     lines: list[str] = []
     for rid, maps in per_read:

@@ -191,6 +191,40 @@ def test_port_refinement_on_card_matches_cpu(cuda):
     cfg = dataclasses.replace(MapperConfig(), refine=True)
     index = MinimizerIndex.build(unitigs, cfg)
     before = myers_edit_distance.launches
-    on_card = map_all(index, reads, cfg, unitigs=unitigs, refine_device=cuda)
+    on_card = map_all(index, reads, cfg, unitigs=unitigs, torch_device=cuda)
     assert myers_edit_distance.launches == before + 1
-    assert on_card == map_all(index, reads, cfg, unitigs=unitigs, refine_device="cpu")
+    assert on_card == map_all(index, reads, cfg, unitigs=unitigs, torch_device="cpu")
+
+
+def test_port_device_mapping_on_card_matches_cpu(cuda):
+    """The six mapping stages on CUDA tensors give the CPU tensors' result,
+    with and without refinement, and on a repeat set that takes tier 2."""
+    from muchsalsa_tpu.config import MapperConfig
+    from muchsalsa_tpu.io.fasta import SequenceStore
+    from muchsalsa_tpu.testing.simulate import add_noise, random_genome, simulate
+    from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+
+    sim = simulate(np.random.default_rng(42), genome_length=60_000, coverage=8.0,
+                   read_length=9_000)
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    rng = np.random.default_rng(1)
+    for name, seq in sim.read_records():
+        reads.add(name, add_noise(rng, seq, 0.08))
+    rep = random_genome(rng, 300)
+    for i in range(8):
+        unitigs.add(f"rep_u{i}", random_genome(rng, 400) + rep + random_genome(rng, 400))
+        reads.add(f"rep_r{i}", add_noise(rng, rep, 0.03))
+    for refine in (False, True):
+        cfg = dataclasses.replace(MapperConfig(), refine=refine)
+        index = mt.MinimizerIndex.build(unitigs, cfg)
+        on_card = mt.map_all(index, reads, cfg, unitigs=unitigs, device=True, torch_device=cuda)
+        stats = dict(mt.DEVICE_MAP_STATS)
+        assert stats["v2"] and stats["device"].startswith("cuda")
+        on_cpu = mt.map_all(index, reads, cfg, unitigs=unitigs, device=True, torch_device="cpu")
+        assert on_card == on_cpu
+        assert {k: mt.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS} == {
+            k: stats[k] for k in mt._CUM_KEYS}
+        assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, torch_device=cuda)
+    assert stats["tier2_reads"] > 0

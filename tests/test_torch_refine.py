@@ -105,22 +105,26 @@ def test_map_all_with_refinement_matches_jax(dataset):
     want = jax_mapper.map_all(index, reads, cfg, unitigs=unitigs, **names)
     stats = {}
     before = myers_edit_distance.launches
-    got = mapper_torch.map_all(index, reads, cfg, unitigs=unitigs, refine_device="cpu",
+    got = mapper_torch.map_all(index, reads, cfg, unitigs=unitigs, torch_device="cpu",
                                stats=stats, **names)
     assert got == want
     assert myers_edit_distance.launches == before  # CPU tensors: the plain version
     unrefined = mapper_torch.map_all(index, reads, dataclasses.replace(cfg, refine=False),
-                                     unitigs=unitigs, refine_device="cpu", **names)
+                                     unitigs=unitigs, torch_device="cpu", **names)
     assert len(unrefined) == len(got) and unrefined != got
     assert stats["problems"] == len(got)
     assert stats["packed"][0].shape == (stats["problems"], stats["M"])
     assert stats["packed"][0].device.type == "cpu"
 
 
-def test_map_all_device_mapping_raises(dataset):
+def test_map_all_device_mapping_raises(dataset, monkeypatch):
+    """Device mapping asked of a machine without a card raises; it never
+    maps on the host instead."""
     unitigs, reads, cfg, index, _ = dataset
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mapper_torch.map_all(index, reads, cfg, device=True, refine_device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper_torch.map_all(index, reads, cfg, device=True)
+    assert mapper_torch.map_all(index, reads, cfg) == jax_mapper.map_all(index, reads, cfg)
 
 
 def test_cuda_request_without_a_card_raises(dataset, monkeypatch):
