@@ -10,7 +10,9 @@ exits non-zero without its last line:
 0. setup   — requires a CUDA device; prints the card's name and power limit
              as nvidia-smi gives them;
 1. build   — builds the kernel library from csrc/ (nvcc), prints seconds
-             and ptxas' register/shared-memory report;
+             and ptxas' register/shared-memory/spill report, and the card's
+             SM count and maximum SM clock (nvidia-smi clocks.max.sm), from
+             which every kernel's bound is computed;
 2. kernels — chain_scan (CUDA) against chain_scan_reference (plain PyTorch)
              on the card at K in {8, 16, 32, 64, 128} x B in {1, 33, 4096},
              and B = 65536 at K = 32; random asymmetric, all-true (tying)
@@ -28,16 +30,18 @@ exits non-zero without its last line:
              Myers at 2, 4 and 8 window words, the wavefront at bands 128
              and 256) against their plain versions on the card, on random
              pairs mutated at 0-30 % with Ns, empty queries and unrelated
-             lengths, at M in {31, 32, 33, 1000, 4096} x P in {1, 33, 4096};
-             bit-equal required; median CUDA-event times at P = 4096 (the
-             plain versions once at M = 4096, where one call takes seconds);
+             lengths, at M in {31, 32, 33, 200, 1000, 4096} x P in {1, 33,
+             4096}, and the exact kernel alone at M = 9000 (past its register
+             classes) x P in {1, 33}; bit-equal required; median CUDA-event
+             times at the largest P (the plain versions once at M >= 4096,
+             where one call takes seconds);
 7. refine  — phase 4's unitigs and reads with 8 % nanopore-style noise,
              mapped by the port's map_all with cfg.refine on the card (the
              refinement of `full`'s map stages), then refine_mappings'
              wavefront engine with the banded Myers kernel and with the
              wavefront kernel; a sample of the exact distances against the
              host's big-int Myers; then each kernel against its plain version
-             on the very arrays the map_all path packed;
+             on the very arrays the map_all path packed, with its bound;
 8. device_map — the same unitigs and reads through the port's
              map_all(device=True) on the card, identical to its host map_all
              with refinement off and on (the exact Myers kernel launched), a
@@ -54,7 +58,9 @@ exits non-zero without its last line:
              device-mapping run, no jax loaded; stage walls, the device-map
              report lines, both walls and peak CUDA memory.
 
-Then the kernel summary line, and last
+Then the kernel summary line (each kernel's launches on its path, error,
+kernel and plain times, bound and what bounds it, and the library yardstick:
+none of the four functions is one PyTorch call), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Each path's launch counts are reset to 0 just before it runs and read just
 after, and must be > 0 for the kernels that path runs; launches made for
@@ -79,8 +85,15 @@ import torch
 OUTPUTS = ("temp_1.target.fa", "temp_1.query.fa", "temp_1.align.paf")
 BUCKETS = (8, 16, 32, 64, 128)
 PHASE2_SHAPES = [(B, K) for K in BUCKETS for B in (1, 33, 4096)] + [(65536, 32)]
-ALIGN_M = (31, 32, 33, 1000, 4096)
+ALIGN_M = (31, 32, 33, 200, 1000, 4096, 9000)
 ALIGN_P = (1, 33, 4096)
+LONG_M = 9000        # past the exact kernel's register classes: that kernel only, small P
+LONG_P = (1, 33)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP64_FLOPS = 34e12             # H100 SXM data sheet, outside the tensor cores
+INT32_OPS_PER_CLK_SM = 64      # Hopper's int32 issue rate
+MYERS_OPS = 15                 # int32 ops of one (column, word) Myers step
+WAVEFRONT_OPS = 10             # int32 ops of one band cell of the wavefront
 WINDOW_WORDS = (2, 4, 8)
 BANDS = (128, 256)
 REFINE_BAND = 256
@@ -110,6 +123,14 @@ def golden_hashes() -> dict[str, str]:
     raise LookupError("tests/test_golden.py defines no GOLDEN")
 
 
+def assert_no_reference(what: str) -> None:
+    """Raise if JAX or any module of the JAX package is loaded."""
+    loaded = sorted(m for m in sys.modules if m in ("jax", "muchsalsa_tpu")
+                    or m.startswith(("jax.", "muchsalsa_tpu.")))
+    if loaded:
+        raise AssertionError(f"{what} loaded {loaded[:8]}")
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -131,6 +152,44 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time (ms) for moving ``nbytes`` at the card's memory rate
+    and doing ``ops`` at ``ops_per_s``, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound(B: int, K: int) -> tuple[float, str]:
+    """chain_scan at (B, K): compat (1 byte a pair), init and scores (f64),
+    backpointers (int32); a compare and an add in f64 per pair k < l."""
+    return bound(B * K * K + B * K * (8 + 8 + 4), B * K * (K - 1), FP64_FLOPS)
+
+
+def align_bound(name: str, args, kw: dict, int32_ops_per_s: float) -> tuple[float, str]:
+    """Bound of one edit-distance call on these inputs: every code and
+    length read once, the distances written once; the int32 ops of the
+    work these lengths need (the kernels stop at each problem's end)."""
+    from muchsalsa_tpu_torch.ops.myers_torch import geometry
+
+    q, ql, t, tl = args
+    m, n = ql.long(), tl.long()
+    P, M, N = q.shape[0], q.shape[1], t.shape[1]
+    nbytes = q.numel() + t.numel() + 12 * P
+    if name == "myers_full":
+        ops = MYERS_OPS * int(((m + 31) // 32 * n).sum())
+    elif name == "myers_banded":
+        wb = kw["window_words"]
+        klo, khi, _h = geometry(wb)
+        diff = n - m
+        in_band = (diff - klo >= 32) & (khi - diff >= 32) & (m > 0) & (n > 0)
+        ops = MYERS_OPS * wb * int(torch.where(in_band, n, 0).sum())
+    else:
+        band = kw["band"]
+        ok = ((n - m).abs() < band) & (m > 0) & (n > 0)
+        ops = WAVEFRONT_OPS * band * int(torch.where(ok, m, 0).sum())
+    return bound(nbytes, ops, int32_ops_per_s)
+
+
 def compare_scan(scan_inputs, B: int, K: int, kind: str, seed: int, timed: bool) -> dict:
     """Kernel vs plain version on the card; raises unless bit-equal."""
     from muchsalsa_tpu_torch.ops.chain_scan import chain_scan, chain_scan_reference
@@ -147,6 +206,7 @@ def compare_scan(scan_inputs, B: int, K: int, kind: str, seed: int, timed: bool)
             f"chain_scan disagrees with its plain version at B={B} K={K} {kind}: "
             f"max_abs_err={err}, bp mismatches={int((b != b_ref).sum())}")
     row = {"B": B, "K": K, "kind": kind, "max_abs_err": err}
+    row["bound_ms"], row["bound_by"] = scan_bound(B, K)
     if timed:
         row["ms"] = median_ms(lambda: chain_scan(c, i), reps=20)
         row["plain_ms"] = median_ms(lambda: chain_scan_reference(c, i), reps=5)
@@ -169,9 +229,11 @@ def align_cases():
                 {"band": b}) for b in BANDS])
 
 
-def compare_align(name, kernel, plain, args, kw, timed: bool, plain_reps: int = 3) -> dict:
-    """Kernel vs plain version on the same CUDA tensors; raises unless
-    bit-equal.  The comparison's own call warms the plain version up."""
+def compare_align(name, kernel, plain, args, kw, timed: bool, int32_ops_per_s: float,
+                  plain_reps: int = 3) -> dict:
+    """Kernel vs plain version on the same CUDA tensors, with the kernel's
+    bound on them; raises unless bit-equal.  The comparison's own call warms
+    the plain version up."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
@@ -183,6 +245,7 @@ def compare_align(name, kernel, plain, args, kw, timed: bool, plain_reps: int = 
             f"mismatches={int((got != want).sum())}")
     row = {"kernel": name, **kw, "P": args[0].shape[0], "M": args[0].shape[1],
            "N": args[2].shape[1], "max_abs_err": err, "refused": int((got < 0).sum())}
+    row["bound_ms"], row["bound_by"] = align_bound(name, args, kw, int32_ops_per_s)
     if timed:
         row["ms"] = median_ms(lambda: kernel(*args, **kw), reps=10)
         row["plain_ms"] = median_ms(lambda: plain(*args, **kw), reps=plain_reps, warmup=0)
@@ -197,28 +260,31 @@ def reset_align_launches() -> None:
         fn.launches = 0
 
 
-def phase_align_kernels(card: str, device) -> dict[str, int]:
+def phase_align_kernels(card: str, device, int32_ops_per_s: float) -> dict[str, int]:
     """Phase 6: every edit-distance kernel configuration against its plain
-    version at the ALIGN_M x ALIGN_P shapes; returns the largest error of
-    each kernel."""
+    version at the ALIGN_M x ALIGN_P shapes (the exact kernel alone at
+    LONG_M x LONG_P); returns the largest error of each kernel."""
     from muchsalsa_tpu_torch.ops.align_torch import pack_problems
     from muchsalsa_tpu_torch.testing.pairs import random_pairs
 
     align_err = {"myers_full": 0, "myers_banded": 0, "banded_wavefront": 0}
     for M in ALIGN_M:
-        for P in ALIGN_P:
+        sizes = LONG_P if M == LONG_M else ALIGN_P
+        cases = [c for c in align_cases() if M != LONG_M or c[0] == "myers_full"]
+        for P in sizes:
             pairs = random_pairs(np.random.default_rng(M * 10_000 + P), P, M)
             args = tuple(x.to(device) for x in pack_problems(pairs))
-            for name, kernel, plain, kw in align_cases():
-                # at M = 4096 one plain call takes seconds: time it once
-                row = compare_align(name, kernel, plain, args, kw, timed=P == max(ALIGN_P),
+            for name, kernel, plain, kw in cases:
+                # at M >= 4096 one plain call takes seconds: time it once
+                row = compare_align(name, kernel, plain, args, kw, timed=P == max(sizes),
+                                    int32_ops_per_s=int32_ops_per_s,
                                     plain_reps=1 if M >= 4096 else 3)
                 align_err[name] = max(align_err[name], row["max_abs_err"])
                 emit("align_kernels", card=card, **row)
     return align_err
 
 
-def phase_refine(card: str, sim, device, align_err: dict[str, int]):
+def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_per_s: float):
     """Phase 7: the simulation's unitigs and noisy reads through the port's
     map_all with refinement on ``device``, then refine_mappings' wavefront
     engine with each of its kernels, a sample against the host oracle, and
@@ -252,18 +318,18 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int]):
     stats: dict = {}
     reset_align_launches()
     t0 = time.perf_counter()
-    lines = map_all(index, reads, cfg, unitigs=unitigs, torch_device=device, stats=stats,
-                    **names)
+    lines = map_all(index, reads, cfg, unitigs=unitigs, device=False, torch_device=device,
+                    stats=stats, **names)
     map_all_s = time.perf_counter() - t0
     refine_launches = {"myers_full": myers_edit_distance.launches,
                        "myers_banded": myers_banded.launches,
                        "banded_wavefront": banded_edit_distance.launches}
-    if "jax" in sys.modules:
-        raise AssertionError("the port's map_all loaded jax")
+    assert_no_reference("the port's map_all")
     if refine_launches["myers_full"] == 0:
         raise AssertionError("map_all with cfg.refine never launched the exact Myers kernel")
     peak = torch.cuda.max_memory_allocated()
-    unrefined = map_all(index, reads, dataclasses.replace(cfg, refine=False), **names)
+    unrefined = map_all(index, reads, dataclasses.replace(cfg, refine=False), device=False,
+                        **names)
     if len(unrefined) != len(lines) or len(lines) != stats["problems"]:
         raise AssertionError(f"{len(lines)} refined lines, {len(unrefined)} unrefined, "
                              f"{stats['problems']} problems")
@@ -321,7 +387,8 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int]):
             continue
         if name == "banded_wavefront" and kw["band"] != REFINE_BAND:
             continue
-        row = compare_align(name, kernel, plain, packed, kw, timed=True)
+        row = compare_align(name, kernel, plain, packed, kw, timed=True,
+                            int32_ops_per_s=int32_ops_per_s)
         align_err[name] = max(align_err[name], row["max_abs_err"])
         slice_rows[name] = row
         emit("refine_kernels", card=card, **row)
@@ -371,7 +438,7 @@ def time_stages(reads, index, cfg, device) -> tuple[int, dict]:
         index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
         device=device)
     sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, 2048, 4)
-    packed = (*mpt.pack_codes(codes, device), torch.from_numpy(lens).to(device))
+    packed = (*mpt.pack_codes(codes, device=device), torch.from_numpy(lens).to(device))
     tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
                    min_chain_score=cfg.min_chain_score, max_hits=64, trim=trim_L,
                    budget=16 * 256)
@@ -405,7 +472,7 @@ def phase_device_map(card: str, data, device) -> None:
     unitigs, reads, cfg, index, names = data
     plain = dataclasses.replace(cfg, refine=False)
     t0 = time.perf_counter()
-    host = mt.map_all(index, reads, plain, **names)
+    host = mt.map_all(index, reads, plain, device=False, **names)
     host_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
@@ -435,8 +502,8 @@ def phase_device_map(card: str, data, device) -> None:
     refined_dev_s = time.perf_counter() - t0
     launches = myers_edit_distance.launches
     t0 = time.perf_counter()
-    refined_host = mt.map_all(index, reads, refine, unitigs=unitigs, torch_device=device,
-                              **names)
+    refined_host = mt.map_all(index, reads, refine, unitigs=unitigs, device=False,
+                              torch_device=device, **names)
     refined_host_s = time.perf_counter() - t0
     if refined_dev != refined_host or launches == 0:
         raise AssertionError(f"refined device mapping differs from refined host mapping "
@@ -444,7 +511,7 @@ def phase_device_map(card: str, data, device) -> None:
 
     rep_unitigs, rep_reads = repeat_set()
     rep_index = mt.MinimizerIndex.build(rep_unitigs, plain)
-    want = mt.map_all(rep_index, rep_reads, plain)
+    want = mt.map_all(rep_index, rep_reads, plain, device=False)
     got = mt.map_all(rep_index, rep_reads, plain, device=True, torch_device=device)
     rep_stats = dict(mt.DEVICE_MAP_STATS)
     if got != want or rep_stats["tier2_reads"] == 0:
@@ -497,8 +564,7 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
         t0 = time.perf_counter()
         run_full_pipeline(illu1, illu2, nano, out, cfg, device=device, device_map=device_map)
         wall = time.perf_counter() - t0
-        if "jax" in sys.modules:
-            raise AssertionError("the port's full pipeline loaded jax")
+        assert_no_reference("the port's full pipeline")
         manifest = json.loads((out / "manifest.json").read_text())
         runs[name] = {
             "out": out, "wall_s": wall, "cuda_peak_bytes": torch.cuda.max_memory_allocated(),
@@ -561,7 +627,17 @@ def main() -> int:
     lib_path = kernels.build()
     kernels.load()
     emit("build", seconds=time.perf_counter() - t0, library=lib_path.name,
-         ptxas=[ln for ln in kernels.build_log.splitlines() if "ptxas" in ln])
+         # ptxas puts each function's stack and spill bytes on a line of their own
+         ptxas=[ln.strip() for ln in kernels.build_log.splitlines()
+                if "ptxas" in ln or "spill" in ln])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    int32_ops_per_s = INT32_OPS_PER_CLK_SM * sms * clock_mhz * 1e6
+    emit("rates", card=card, sms=sms, clocks_max_sm_mhz=clock_mhz,
+         int32_ops_per_s=int32_ops_per_s, hbm_bytes_per_s=HBM_BYTES_PER_S,
+         fp64_flops=FP64_FLOPS)
 
     # --- 2. kernel vs plain version at the bucket shapes
     scan_inputs = load_test_module("test_torch_kernels_cuda").scan_inputs
@@ -612,8 +688,7 @@ def main() -> int:
         port = assemble(*args, work / "ecoli" / "port", device="cuda")
         port_wall = time.perf_counter() - t0
         core_launches = chain_scan.launches
-        if "jax" in sys.modules:
-            raise AssertionError("the port's assembly loaded jax")
+        assert_no_reference("the port's assembly")
         if core_launches == 0:
             raise AssertionError("the E. coli-scale core never launched chain_scan")
 
@@ -653,11 +728,11 @@ def main() -> int:
     top = max(main_rows, key=lambda r: r["B"])
 
     # --- 6. edit-distance kernels vs their plain versions
-    align_err = phase_align_kernels(card, torch.device("cuda"))
+    align_err = phase_align_kernels(card, torch.device("cuda"), int32_ops_per_s)
 
     # --- 7. refinement on the card, through the port's entry points
     refine_launches, slice_rows, map_data = phase_refine(
-        card, sim, torch.device("cuda"), align_err)
+        card, sim, torch.device("cuda"), align_err, int32_ops_per_s)
 
     # --- 8. device mapping on the card, through the port's map_all
     phase_device_map(card, map_data, "cuda")
@@ -666,8 +741,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="ms_chip_smoke_full_") as td:
         phase_full(card, Path(td), sim, map_data[1], "cuda")
 
-    if "jax" in sys.modules:
-        raise AssertionError("chip_smoke loaded jax")
+    assert_no_reference("chip_smoke")
+    # no single PyTorch call computes any of the four functions: no yardstick
     summary = [{
         "name": "chain_scan",
         "route": "cuda",
@@ -677,6 +752,9 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": top["bound_by"],
+        "library_ms": None,
     }]
     for name, replaces in (("myers_full", "muchsalsa_tpu/ops/myers_full_pallas.py:42"),
                            ("myers_banded", "muchsalsa_tpu/ops/myers_pallas.py:61"),
@@ -689,6 +767,9 @@ def main() -> int:
             "max_abs_err": align_err[name],
             "ms": slice_rows[name]["ms"],
             "plain_ms": slice_rows[name]["plain_ms"],
+            "bound_ms": slice_rows[name]["bound_ms"],
+            "bound_by": slice_rows[name]["bound_by"],
+            "library_ms": None,
         })
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,10 @@ order, and the ``StageTimer`` stage names are the JAX driver's; phase ②
 (edges) and phase ③ (chaining) run on ``device`` through
 ``matching/edges_torch.py`` and ``ops/chaining_torch.py`` whenever
 ``config.device.use_device`` is set.  With it unset, both run the host
-oracle (``matching.edges.build_edges`` and ``driver.chaining_phase``) and
+oracle (``matching.edges.build_edges`` and ``host.chaining_phase``) and
 nothing reaches ``device``: ``chip_smoke.py`` holds the port against that
-run.  Every other phase is the JAX package's host code, imported
-unchanged.
+run.  Every other phase is host code, the port's own copy of the JAX
+package's modules (``assemble/host.py`` holds the driver's host half).
 
 There is no size gate: the JAX package's ``chain_device_min_problems`` and
 ``edges_device_min_rows`` amortise a remote compiler and a slow link, and
@@ -23,21 +23,21 @@ from pathlib import Path
 
 import torch
 
-from muchsalsa_tpu.assemble import consensus
-from muchsalsa_tpu.assemble import contraction as ctr
-from muchsalsa_tpu.assemble import spanning
-from muchsalsa_tpu.assemble.consensus import ConsensusContext, assemble_path
-from muchsalsa_tpu.assemble.driver import (
+from muchsalsa_tpu_torch.assemble import consensus
+from muchsalsa_tpu_torch.assemble import contraction as ctr
+from muchsalsa_tpu_torch.assemble import spanning
+from muchsalsa_tpu_torch.assemble.consensus import ConsensusContext, assemble_path
+from muchsalsa_tpu_torch.assemble.host import (
     _assembly_worker_count, _run_parallel_assembly, build_graph, chaining_phase)
-from muchsalsa_tpu.assemble.linearize import linearize_graph
-from muchsalsa_tpu.assemble.orientation import get_directed_graph, pick_start_vertex
-from muchsalsa_tpu.io.fasta import SequenceStore
-from muchsalsa_tpu.io.output import OutputWriter
-from muchsalsa_tpu.io.paf import read_paf
-from muchsalsa_tpu.io.registry import Registry
-from muchsalsa_tpu.matching.edges import build_edges
-from muchsalsa_tpu.matching.store import MatchStore
-from muchsalsa_tpu.utils.timing import StageTimer
+from muchsalsa_tpu_torch.assemble.linearize import linearize_graph
+from muchsalsa_tpu_torch.assemble.orientation import get_directed_graph, pick_start_vertex
+from muchsalsa_tpu_torch.io.fasta import SequenceStore
+from muchsalsa_tpu_torch.io.output import OutputWriter
+from muchsalsa_tpu_torch.io.paf import read_paf
+from muchsalsa_tpu_torch.io.registry import Registry
+from muchsalsa_tpu_torch.matching.edges import build_edges
+from muchsalsa_tpu_torch.matching.store import MatchStore
+from muchsalsa_tpu_torch.utils.timing import StageTimer
 from muchsalsa_tpu_torch.config import DEFAULT_CONFIG, Config
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.matching.edges_torch import build_edges_device

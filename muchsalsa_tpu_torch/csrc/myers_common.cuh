@@ -1,5 +1,5 @@
-// Pieces shared by the two Myers kernels (myers_full.cu, myers_banded.cu):
-// the PEq build and one Myers 1999 block step of one 32-bit pattern word.
+// Pieces of the banded Myers kernel (myers_banded.cu): the PEq build and one
+// Myers 1999 block step of one 32-bit pattern word.
 // Everything here has internal linkage, so each kernel source gets its own
 // copy and the shared library links without duplicate symbols.
 

@@ -14,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from muchsalsa_tpu.matching.edges import (
+from muchsalsa_tpu_torch.matching.edges import (
     _empty_edges, _finish_edges, _pair_indices, _scaffold_groups)
-from muchsalsa_tpu.matching.store import EdgeMatches, MatchStore
+from muchsalsa_tpu_torch.matching.store import EdgeMatches, MatchStore
 from muchsalsa_tpu_torch.device import resolve_device
 
 

@@ -26,7 +26,7 @@ import ctypes
 import numpy as np
 import torch
 
-from muchsalsa_tpu.utils.seq import encode_2bit
+from muchsalsa_tpu_torch.utils.seq import encode_2bit
 
 INF = 1 << 20
 Q_PAD = 5   # query padding code: matches nothing
@@ -37,7 +37,7 @@ def pack_problems(pairs: list[tuple[bytes, bytes]]):
     """(query, target) byte pairs -> (q_codes (P, M) uint8 padded with 5,
     q_lens (P,) int32, t_codes (P, N) uint8 padded with 4, t_lens (P,)
     int32) as CPU tensors; M and N are the longest query and target (1 when
-    there are none), as ``muchsalsa_tpu.ops.align.pack_problems``."""
+    there are none), as ``muchsalsa_tpu/ops/align.py::pack_problems``."""
     P = len(pairs)
     q_lens = np.fromiter((len(q) for q, _ in pairs), dtype=np.int32, count=P)
     t_lens = np.fromiter((len(t) for _, t in pairs), dtype=np.int32, count=P)

@@ -17,10 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from muchsalsa_tpu.matching.store import EdgeMatches, MatchStore
-from muchsalsa_tpu.ops.chaining import (
+from muchsalsa_tpu_torch.matching.store import EdgeMatches, MatchStore
+from muchsalsa_tpu_torch.ops.chaining import (
     ChainResult, EdgeContext, GatheredMatches, finalize_paths, max_pairwise_paths)
-from muchsalsa_tpu.ops.overlap import get_overlap
+from muchsalsa_tpu_torch.ops.overlap import get_overlap
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.chain_scan import NEG, chain_scan
 from muchsalsa_tpu_torch.state import batch_to_torch

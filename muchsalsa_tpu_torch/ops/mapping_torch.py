@@ -96,7 +96,7 @@ def _row_bucket(n: int) -> int:
 
 
 def build_device_tables(idx_hashes, idx_offsets, entry_unitig, entry_pos, entry_strand,
-                        device="cpu"):
+                        *, device):
     """Build the packed v2 join tables from a host index (numpy) on the
     host and place them on ``device``.
 
@@ -156,7 +156,7 @@ def build_device_tables(idx_hashes, idx_offsets, entry_unitig, entry_pos, entry_
 # 2-bit codes: 16 bases per 32-bit word plus one non-ACGT bit per base
 
 
-def pack_codes(codes: np.ndarray, device="cpu"):
+def pack_codes(codes: np.ndarray, *, device):
     """Host pack of (R, L) uint8 base codes (A..T = 0..3, other/pad = 4)
     into (packed, nmask) on ``device``: (R, L/16) and (R, L/32) int64
     tensors of 32-bit words.  Requires L % 32 == 0."""

@@ -28,7 +28,6 @@ import torch
 from muchsalsa_tpu_torch.ops.align_torch import Q_PAD, check_problems, device_type
 
 W_BITS = 32
-REGISTER_WORDS = 32  # the exact kernel keeps VP/VN in registers up to here
 FULL = 0xFFFFFFFF
 TOP = 0x80000000
 
@@ -132,6 +131,75 @@ def _launch_args(*tensors):
     return [ctypes.c_void_p(x.data_ptr()) for x in tensors]
 
 
+# The exact kernel's classes: words per lane held in registers (K), and the
+# device-memory class past 32 lanes of 8 words.  A lane's step costs about
+# STEP_SLOTS issue slots outside its words (shuffle, text, branch) and
+# WORD_SLOTS per word (PEq selection and the word step), so a problem of W
+# words over L = ceil(W / K) lanes costs L * (STEP_SLOTS + K * WORD_SLOTS)
+# per column; the schedule takes the cheapest K.
+CLASS_WORDS_PER_LANE = (1, 2, 4, 8)
+STATE_CLASS = len(CLASS_WORDS_PER_LANE)
+STEP_SLOTS = 22
+WORD_SLOTS = 15
+_LANES = 32
+_STATE_PLANES = 6        # VP, VN and the four PEq planes of the device-memory class
+
+
+def lane_plan(words: int) -> tuple[int, int]:
+    """(class, lanes per problem) of a problem of ``words`` >= 1 pattern
+    words: the register class of least cost, or ``STATE_CLASS`` on 32 lanes
+    past 256 words."""
+    best = None
+    for cls, k in enumerate(CLASS_WORDS_PER_LANE):
+        lanes = -(-words // k)
+        cost = lanes * (STEP_SLOTS + k * WORD_SLOTS)
+        if lanes <= _LANES and (best is None or cost < best[0]):
+            best = (cost, cls, lanes)
+    return (best[1], best[2]) if best else (STATE_CLASS, _LANES)
+
+
+_REGISTER_WORDS = _LANES * CLASS_WORDS_PER_LANE[-1]
+# lane_plan of 0..257 words (0 as 1; 257 stands for every longer pattern)
+_PLAN = torch.tensor([lane_plan(max(w, 1)) for w in range(_REGISTER_WORDS + 2)])
+_plan_on: dict[str, torch.Tensor] = {}
+
+
+def schedule_problems(
+    q_lens: torch.Tensor, t_lens: torch.Tensor, cols: int,
+) -> tuple[torch.Tensor, list[tuple[int, int, int, int]], int]:
+    """The exact kernel's launch plan: ``(order, groups, k_state)``.
+
+    Each problem gets a class and a segment length (``lane_plan``, looked
+    up in a table of its word count).
+    ``order`` (P,) int32 lists the problems by descending class (the
+    longest steps first), descending lanes and descending columns of work
+    ``min(n, cols)`` (0 for an empty query), so a warp's problems end
+    together and the longest warps start first; ``groups`` holds one
+    ``(class, lanes, first slot, count)`` row per non-empty group, in that
+    order; ``k_state`` is the device-memory class's largest words per lane
+    (0 when no problem has that class).  Each problem's result goes to its
+    own slot, so ``order`` needs no inverse."""
+    m = q_lens.long()
+    words = ((m + W_BITS - 1) // W_BITS).clamp(min=1)
+    plan = _plan_on.get(str(m.device))
+    if plan is None:
+        plan = _plan_on[str(m.device)] = _PLAN.to(m.device)
+    cls, lanes = plan[words.clamp(max=_REGISTER_WORDS + 1)].unbind(1)
+    work = torch.where(m > 0, t_lens.long().clamp(max=cols), 0)
+    group = (STATE_CLASS - cls) * _LANES + _LANES - lanes
+    order = torch.argsort((group << 32) | (0x7FFFFFFF - work), stable=True).to(torch.int32)
+    counts = torch.bincount(group, minlength=(STATE_CLASS + 1) * _LANES).tolist()
+    groups, start = [], 0
+    for g, count in enumerate(counts):
+        if count:
+            groups.append((STATE_CLASS - g // _LANES, _LANES - g % _LANES, start, count))
+            start += count
+    k_state = 0
+    if groups and groups[0][0] == STATE_CLASS:
+        k_state = -(-int(words.max()) // _LANES)
+    return order, groups, k_state
+
+
 def myers_edit_distance(
     q_codes: torch.Tensor, q_lens: torch.Tensor, t_codes: torch.Tensor,
     t_lens: torch.Tensor, max_n: int | None = None,
@@ -139,25 +207,23 @@ def myers_edit_distance(
     """Batched exact (unbanded) edit distance; (P,) int32.
 
     On CUDA tensors this launches ``csrc/myers_full.cu`` on the current
-    stream and counts the launch in ``myers_edit_distance.launches``; on CPU
-    tensors it runs ``myers_edit_distance_reference``.
+    stream with ``schedule_problems``' plan and counts the call in
+    ``myers_edit_distance.launches``; on CPU tensors it runs
+    ``myers_edit_distance_reference``.
     """
     if device_type(q_codes, "myers_edit_distance") == "cpu":
         return myers_edit_distance_reference(q_codes, q_lens, t_codes, t_lens, max_n)
     P, M, N = check_problems(q_codes, q_lens, t_codes, t_lens)
-    cols = max_n if max_n is not None else N
-    n_words = max(-(-M // W_BITS), 1)
+    cols = max(min(max_n if max_n is not None else N, N), 0)
     dev = q_codes.device
     out = torch.empty((P,), dtype=torch.int32, device=dev)
     if P == 0:
         return out
-    # kernel scratch, [word][problem] so that neighbouring threads touch
-    # neighbouring words: PEq (4 rows), and VP and VN where they do not fit
-    # in registers
-    peq = torch.empty((4, n_words, P), dtype=torch.int32, device=dev)
-    state_words = n_words if n_words > REGISTER_WORDS else 0
-    vp = torch.empty((state_words, P), dtype=torch.int32, device=dev)
-    vn = torch.empty((state_words, P), dtype=torch.int32, device=dev)
+    order, groups, k_state = schedule_problems(q_lens, t_lens, cols)
+    n_state = sum(count for cls, _seg, _start, count in groups if cls == STATE_CLASS)
+    state = torch.empty((_STATE_PLANES * k_state * n_state * W_BITS,), dtype=torch.int32,
+                        device=dev)
+    table = (ctypes.c_int * (4 * len(groups)))(*(v for row in groups for v in row))
 
     from muchsalsa_tpu_torch import kernels
 
@@ -165,8 +231,8 @@ def myers_edit_distance(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ms_myers_full(
-            *_launch_args(q_codes, q_lens, t_codes, t_lens, out, peq, vp, vn),
-            P, M, N, n_words, max(min(cols, N), 0), ctypes.c_void_p(stream))
+            *_launch_args(q_codes, q_lens, t_codes, t_lens, order, out, state),
+            table, len(groups), P, M, N, cols, k_state, ctypes.c_void_p(stream))
     kernels.check(lib, code, f"myers_full launch (P={P}, M={M}, N={N})")
     myers_edit_distance.launches += 1
     return out

@@ -2,23 +2,23 @@
 
 Port of ``muchsalsa_tpu/pipeline/full.py::run_full_pipeline`` (:103-325):
 
-  ① k-mer filter of the Illumina reads     host (``pipeline.kmer``)
-  ② unitigs                                host (``pipeline.dbg``)
+  ① k-mer filter of the Illumina reads     host (``pipeline/kmer.py``)
+  ② unitigs                                host (``pipeline/dbg.py``)
   ③ map unitigs onto the long reads        the port's ``map_all``
-  ④ unitig coverage filter                 host (``pipeline.unitig_filter``)
+  ④ unitig coverage filter                 host (``pipeline/unitig_filter.py``)
   ⑤ map the corrected unitigs              the port's ``map_all``
-  ⑥ scrub the long reads                   host (``pipeline.scrubber``)
+  ⑥ scrub the long reads                   host (``pipeline/scrubber.py``)
   ⑦ map onto the scrubbed reads            the port's ``map_all``
   ⑧ core assembly                          the port's ``assemble``
   ⑨ copy the target contigs to ``03.assembly.unpolished.fa``
 
 Stages ③⑤⑦ map on ``device`` when ``device_map`` is set (else on the host)
 and refine on ``device`` when ``config.mapper.refine`` is set; stage ⑧ runs
-edges and chaining on ``device``.  Every other stage is the JAX package's
-host code, imported unchanged.  The device legs of stages ①②⑥ are not
-ported, so their flags raise.  Stages checkpoint through ``StageRunner``
-manifests (a rerun skips what is up to date; the manifest keys do not hold
-the placement, as in the JAX package).
+edges and chaining on ``device``.  Every other stage is host code, the
+port's own copy of the JAX package's modules.  The device legs of stages
+①②⑥ are not ported, so their flags raise.  Stages checkpoint through
+``StageRunner`` manifests (a rerun skips what is up to date; the manifest
+keys do not hold the placement, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -28,13 +28,26 @@ from pathlib import Path
 
 import torch
 
-from muchsalsa_tpu.io.fasta import SequenceStore, write_fasta
-from muchsalsa_tpu.pipeline.full import _read_pairs
-from muchsalsa_tpu.pipeline.stages import StageRunner
 from muchsalsa_tpu_torch.config import DEFAULT_CONFIG, Config
 from muchsalsa_tpu_torch.device import resolve_device
+from muchsalsa_tpu_torch.io.fasta import SequenceStore, write_fasta
+from muchsalsa_tpu_torch.pipeline.stages import StageRunner
 
 SENTINEL = "__sentinel__\t1\t0\t1\t+\t__sentinel__\t1\t0\t1\t0\t1\t0"
+
+
+def _read_pairs(path1: Path, path2: Path | None):
+    """Illumina mates as (R1, R2) byte pairs, R2 empty where the second file
+    is shorter or absent (``muchsalsa_tpu/pipeline/full.py:91``)."""
+    s1 = SequenceStore.from_file(path1)
+    seqs1 = [s1.sequence(i) for i in s1.ids()]
+    if path2 is None:
+        return [(s, b"") for s in seqs1]
+    s2 = SequenceStore.from_file(path2)
+    seqs2 = [s2.sequence(i) for i in s2.ids()]
+    if len(seqs2) < len(seqs1):
+        seqs2 += [b""] * (len(seqs1) - len(seqs2))
+    return list(zip(seqs1, seqs2))
 
 
 def run_full_pipeline(
@@ -92,7 +105,7 @@ def run_full_pipeline(
 
     # ① k-mer filter of Illumina reads
     def stage_kmer():
-        from muchsalsa_tpu.pipeline.kmer import (
+        from muchsalsa_tpu_torch.pipeline.kmer import (
             abundance_threshold, count_kmers, filter_read_pairs, high_abundance_kmers,
             histogram)
 
@@ -116,7 +129,7 @@ def run_full_pipeline(
 
     # ② unitig construction
     def stage_unitigs():
-        from muchsalsa_tpu.pipeline.dbg import build_unitigs
+        from muchsalsa_tpu_torch.pipeline.dbg import build_unitigs
 
         store = SequenceStore.from_file(filtered_fa)
         unitigs = build_unitigs(
@@ -170,7 +183,7 @@ def run_full_pipeline(
 
     # ④ unitig coverage filter
     def stage_unitig_filter():
-        from muchsalsa_tpu.pipeline.unitig_filter import filter_unitigs
+        from muchsalsa_tpu_torch.pipeline.unitig_filter import filter_unitigs
 
         store = SequenceStore.from_file(unitigs_fa)
         seqs = {store.registry.name(i): store.sequence(i) for i in store.ids()}
@@ -193,7 +206,7 @@ def run_full_pipeline(
 
     # ⑥ scrub long reads
     def stage_scrub():
-        from muchsalsa_tpu.pipeline.scrubber import scrub_reads
+        from muchsalsa_tpu_torch.pipeline.scrubber import scrub_reads
 
         reads = SequenceStore.from_file(nanopore)
         lines = [ln for ln in paf2.read_text().splitlines() if ln and "__sentinel__" not in ln]

@@ -4,8 +4,8 @@
 Port of ``muchsalsa_tpu/pipeline/mapper.py::map_all_with_device`` (:454-847),
 ``refine_mappings`` (:854-927) and ``map_all`` (:343-397).  The host mapper
 (``MinimizerIndex``, ``map_batch``, ``map_read``, the fork pool, the length
-buckets and their budgets, ``write_paf``) is imported from the JAX package,
-which loads no JAX for it.
+buckets and their budgets, ``write_paf``) is the port's copy in
+``pipeline/mapper.py``.
 
 Device mapping runs the six v2 stages of ``ops.mapping_torch`` per batch of
 one length bucket and pulls each batch's hits in the dense layout.  Reads
@@ -24,13 +24,13 @@ import time
 import numpy as np
 import torch
 
-from muchsalsa_tpu import native
-from muchsalsa_tpu.config import MapperConfig
-from muchsalsa_tpu.io.fasta import SequenceStore
-from muchsalsa_tpu.pipeline.mapper import (
+from muchsalsa_tpu_torch import native
+from muchsalsa_tpu_torch.config import MapperConfig
+from muchsalsa_tpu_torch.io.fasta import SequenceStore
+from muchsalsa_tpu_torch.pipeline.mapper import (
     _POOL_STATE, Mapping, MinimizerIndex, _pool_map_one, device_bucket_budgets,
     device_bucket_len, map_batch, map_read, write_paf)
-from muchsalsa_tpu.utils.seq import encode_2bit, reverse_complement
+from muchsalsa_tpu_torch.utils.seq import encode_2bit, reverse_complement
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, pack_problems
 from muchsalsa_tpu_torch.ops.mapping_torch import (
@@ -184,7 +184,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                 c = encode_2bit(seq)
                 codes[i, : len(c)] = c
                 lens[i] = len(c)
-            tensors = pack_codes(codes, dev)
+            tensors = pack_codes(codes, device=dev)
         tensors = (*tensors, torch.from_numpy(lens).to(dev))
         if cache:
             cache_put(key, tensors)
@@ -370,14 +370,15 @@ def map_all(
     read_names=None,
     unitigs: SequenceStore | None = None,
     processes: int | None = None,
-    device: bool = False,
+    device: bool = True,
     torch_device: str | torch.device = "cuda",
     stats: dict | None = None,
 ) -> list[str]:
     """Map every read; emit PAF lines (query = unitig, target = read).
 
-    ``device=True`` maps on ``torch_device`` (``map_all_with_device``);
-    otherwise the host maps.  With ``cfg.refine`` (and ``unitigs``
+    ``device=True`` (the default, as in the CLI and ``run_full_pipeline``)
+    maps on ``torch_device`` (``map_all_with_device``); ``device=False``
+    maps on the host.  With ``cfg.refine`` (and ``unitigs``
     provided), match counts are alignment-refined by ``refine_mappings`` on
     ``torch_device``.  The default ``cuda`` raises when there is no card;
     ``torch_device`` is not touched when neither runs.  ``processes`` > 1

@@ -1,0 +1,306 @@
+"""Read scrubbing: trim long reads to their anchor/overlap-supported spans.
+
+Reference counterpart: ``pipeline/scrubber_bfs.py`` — the reference's
+out-of-core streaming mechanism (SURVEY.md §2.4 #35): a graph links
+reads sharing an anchor; bounded BFS subsets (<= ``subset_size`` nodes)
+are all-vs-all overlapped (there: an external ``minimap2 -x ava-ont``
+fork; here: the native minimizer mapper over the subset), overlap spans
+merge into each read's covered intervals, and interior ("center") nodes
+emit their covered spans (ends trimmed) and leave the graph.
+
+Semantics mirrored: >= 500bp hits only, first anchor hit per
+(anchor, read) pair, same-direction extension-merge within 500bp
+(``scrubber_bfs.py:204-240``), span trim to [200, len-200], min-id BFS
+starts.
+
+The port's copy of the host paths of ``muchsalsa_tpu/pipeline/scrubber.py``:
+the device all-vs-all (``_device_all_vs_all``) and the cross-process record
+exchange (``jax_record_allgather``) stay behind (ROADMAP.md §1 items 10 and
+12); asking for either raises.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+
+from muchsalsa_tpu_torch.config import MapperConfig, ScrubConfig
+from muchsalsa_tpu_torch.io.fasta import SequenceStore
+from muchsalsa_tpu_torch.pipeline.mapper import MinimizerIndex, map_read
+
+
+@dataclass
+class _Node:
+    length: int
+    illu_to_ranges: dict[str, tuple[int, int]] = field(default_factory=dict)
+    seq_to_ranges: dict[str, tuple[int, int, str]] = field(default_factory=dict)
+
+
+def build_anchor_graph(paf_lines, min_hit: int = 500):
+    """Anchor-sharing read graph (scrubber_bfs.py:57-114).
+
+    Reads sharing an anchor (PAF col 0) form a clique.  The reference
+    groups CONSECUTIVE lines by col 0 — correct for minimap2's
+    query-grouped output; our native mapper emits read-grouped lines,
+    so membership is keyed by anchor id explicitly (identical graph on
+    query-grouped input, and the intended graph — anchor-sharing reads
+    co-located per BFS subset — on any line order)."""
+    nodes: dict[str, _Node] = {}
+    adj: dict[str, set[str]] = {}
+    chunks: dict[str, list[str]] = {}
+
+    for line in paf_lines:
+        if not line:
+            continue
+        c = line.split("\t")
+        id_1, id_2 = c[0], c[5]
+        len_2 = int(c[6])
+        s_1, e_1 = int(c[2]), int(c[3])
+        s_2, e_2 = int(c[7]), int(c[8])
+
+        if e_1 - s_1 < min_hit:
+            continue
+
+        if id_2 not in nodes:
+            nodes[id_2] = _Node(length=len_2)
+            adj[id_2] = set()
+        if id_1 in nodes[id_2].illu_to_ranges:
+            continue
+        nodes[id_2].illu_to_ranges[id_1] = (s_2, e_2)
+
+        chunk_nodes = chunks.setdefault(id_1, [])
+        for prev in chunk_nodes:
+            adj[prev].add(id_2)
+            adj[id_2].add(prev)
+        chunk_nodes.append(id_2)
+
+    return nodes, adj
+
+
+def _merge_ranges(node: _Node, other: str, s: int, e: int, direction: str, ext: int):
+    cur = node.seq_to_ranges.get(other)
+    if cur is None:
+        node.seq_to_ranges[other] = (s, e, direction)
+        return
+    cs, ce, d = cur
+    if direction == d and (abs(cs - e) < ext or abs(s - ce) < ext):
+        node.seq_to_ranges[other] = (min(s, cs), max(e, ce), direction)
+
+
+def _covered_spans(node: _Node) -> list[tuple[int, int]]:
+    join = [(s, e) for (s, e, _d) in node.seq_to_ranges.values()]
+    join += list(node.illu_to_ranges.values())
+    join.sort()
+    covered: list[tuple[int, int]] = []
+    for s, e in join:
+        if covered and covered[-1][0] <= e and s <= covered[-1][1]:
+            covered[-1] = (min(s, covered[-1][0]), max(e, covered[-1][1]))
+        else:
+            covered.append((s, e))
+    return covered
+
+
+def _subset_schedule(
+    nodes, adj, subset_size: int
+) -> list[tuple[list[str], list[str]]]:
+    """Precompute the (subset, center) schedule of the streaming scrub.
+
+    The BFS subsets, center selection, and node retirement depend only
+    on the anchor graph — never on the overlap results — so the whole
+    schedule is known up front.  That makes the expensive per-subset
+    all-vs-all overlap step embarrassingly parallel (across processes /
+    hosts) while the order-dependent range merging stays sequential.
+    """
+    adj = {k: set(v) for k, v in adj.items()}
+    remaining = set(nodes)
+    schedule: list[tuple[list[str], list[str]]] = []
+
+    # ``min(remaining - bfs_subset)`` recomputed per accreted node is
+    # O(N) set work — O(N * subset_size) total when the anchor graph is
+    # sparse and BFS adds one node at a time (measured: the dominant
+    # term of the 140 Mb scrub wall).  An ascending scan pointer gives
+    # the identical min: within one subset accumulation ``remaining``
+    # only shrinks and ``bfs_subset`` only grows, so everything behind
+    # the pointer stays ineligible; the pointer resets when a subset is
+    # emitted (non-center members become eligible again).
+    sorted_ids = sorted(nodes)
+    ptr = 0
+    bfs_subset: set[str] = set()
+    while remaining:
+        while ptr < len(sorted_ids) and (
+            sorted_ids[ptr] not in remaining or sorted_ids[ptr] in bfs_subset
+        ):
+            ptr += 1
+        if ptr < len(sorted_ids):
+            start = sorted_ids[ptr]
+        else:
+            # every remaining node is already in the subset
+            start = min(remaining)
+
+        # BFS until subset_size nodes collected.  Membership against
+        # ``bfs_subset`` is checked in place — building
+        # ``{start} | bfs_subset`` copied the whole growing subset per
+        # accreted node (the second quadratic term of the 140 Mb wall)
+        queue = deque([start])
+        seen = {start}
+        order = [start]
+        while queue and len(bfs_subset) + len(order) < 10 * subset_size:
+            cur = queue.popleft()
+            for nb in sorted(adj.get(cur, ())):
+                if nb in seen or nb in bfs_subset or nb not in remaining:
+                    continue
+                seen.add(nb)
+                order.append(nb)
+                queue.append(nb)
+
+        for node in order:
+            if len(bfs_subset) >= subset_size:
+                break
+            bfs_subset.add(node)
+
+        if len(bfs_subset) < subset_size and len(remaining) > len(bfs_subset):
+            continue  # merge small component into the next subset
+
+        # center = members with no neighbor outside the subset
+        center = set(bfs_subset)
+        for u in bfs_subset:
+            for v in adj.get(u, ()):
+                if v in remaining and v not in bfs_subset:
+                    center.discard(u)
+                    break
+
+        schedule.append((sorted(bfs_subset), sorted(center)))
+
+        for name in center:
+            remaining.discard(name)
+            subsetless = adj.pop(name, set())
+            for v in subsetless:
+                adj.get(v, set()).discard(name)
+        bfs_subset.clear()
+        ptr = 0  # non-center members are eligible starts again
+
+    return schedule
+
+
+def _subset_overlap_records(
+    subset: list[str], reads: SequenceStore, scrub_cfg, mapper_cfg,
+) -> list[tuple[str, str, int, int, str]]:
+    """All-vs-all overlap of one subset -> ordered merge records
+    ``(target_read, other_read, start, end, direction)``.
+
+    Pure function of (subset, reads) — the parallelizable step.  Uses
+    one multithreaded native batch call when available; otherwise the
+    python path computes each read's minimizer sketch once and reuses
+    it for index build and lookup.
+    """
+    from muchsalsa_tpu_torch import native
+    from muchsalsa_tpu_torch.ops.minimizer import minimizers
+    from muchsalsa_tpu_torch.pipeline.mapper import map_batch
+
+    use_native = native.available() and mapper_cfg.k <= 15
+
+    subset_store = SequenceStore()
+    for name in sorted(subset):
+        rid = reads.registry.get(name)
+        if rid is not None and rid in reads:
+            subset_store.add(name, reads.sequence(rid))
+
+    sketches = None
+    if not use_native:
+        sketches = {
+            sid: minimizers(seq, mapper_cfg.k, mapper_cfg.w)
+            for sid, seq in subset_store.items()
+        }
+    index = MinimizerIndex.build(subset_store, mapper_cfg, sketches=sketches)
+    per_read = map_batch(index, subset_store, mapper_cfg) if use_native else None
+    if per_read is None:
+        per_read = [
+            (
+                rid,
+                map_read(
+                    index, seq, mapper_cfg,
+                    sketch=sketches[rid] if sketches is not None else None,
+                ),
+            )
+            for rid, seq in subset_store.items()
+        ]
+
+    records: list[tuple[str, str, int, int, str]] = []
+    for rid, maps in per_read:
+        rname = subset_store.registry.name(rid)
+        for m in maps:
+            if m.unitig == rid:
+                continue
+            if m.q_end - m.q_start < scrub_cfg.min_hit_length:
+                continue
+            oname = subset_store.registry.name(m.unitig)
+            d = "+" if m.strand else "-"
+            # id_1 = indexed read (query coords), id_2 = mapped read
+            records.append((oname, rname, m.q_start, m.q_end, d))
+            records.append((rname, oname, m.t_start, m.t_end, d))
+    return records
+
+
+def _apply_and_emit(nodes, center, records, reads, out, scrub_cfg) -> None:
+    """Sequential half of one subset: merge overlap records into the
+    node ranges, then emit the covered spans of the center nodes."""
+    for tgt, other, s, e, d in records:
+        _merge_ranges(nodes[tgt], other, s, e, d, scrub_cfg.ext_merge_distance)
+
+    trim = scrub_cfg.end_trim
+    for name in center:
+        node = nodes[name]
+        rid = reads.registry.get(name)
+        if rid is None or rid not in reads:
+            continue
+        seq = reads.sequence(rid)
+        for i, (cs, ce) in enumerate(_covered_spans(node)):
+            lo = max(cs, trim)
+            hi = min(ce, node.length - trim)
+            # reference slices [lo, hi] inclusive via find_sequence_r
+            if hi >= lo:
+                out.append((f"{name}_{i}", seq[lo : hi + 1]))
+
+
+def scrub_reads(
+    paf_lines: list[str],
+    reads: SequenceStore,
+    scrub_cfg: ScrubConfig | None = None,
+    mapper_cfg: MapperConfig | None = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    allgather=None,
+    device: bool = False,
+) -> list[tuple[str, bytes]]:
+    """Returns scrubbed read records ``(name, sequence)``.
+
+    The JAX package shards the per-subset all-vs-all across processes
+    (``process_count > 1``, records exchanged through ``allgather``) and
+    can run it on the device; the port has neither yet, so
+    ``process_count > 1`` raises (ROADMAP.md §1 item 12), as does
+    ``device=True`` (§1 item 10).
+    """
+    if process_count > 1 or allgather is not None:
+        raise NotImplementedError(
+            "the distributed scrub is not ported to muchsalsa_tpu_torch yet "
+            "(ROADMAP.md §1 item 12)")
+    if device:
+        raise NotImplementedError(
+            "the scrub's device all-vs-all is not ported to muchsalsa_tpu_torch yet "
+            "(ROADMAP.md §1 item 10); scrub on the host")
+    scrub_cfg = scrub_cfg or ScrubConfig()
+    mapper_cfg = mapper_cfg or MapperConfig()
+
+    nodes, adj = build_anchor_graph(paf_lines, scrub_cfg.min_hit_length)
+    schedule = _subset_schedule(nodes, adj, scrub_cfg.subset_size)
+
+    record_lists = [
+        _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg)
+        for subset, _center in schedule
+    ]
+
+    out: list[tuple[str, bytes]] = []
+    for (subset, center), records in zip(schedule, record_lists):
+        _apply_and_emit(nodes, center, records, reads, out, scrub_cfg)
+    return out
+

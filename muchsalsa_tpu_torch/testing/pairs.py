@@ -3,16 +3,16 @@
 Host numpy only, from a seed: query/target byte pairs whose targets are the
 queries mutated at 0-30 % (substitutions, insertions, deletions, ``N``s
 among the bases), plus empty queries and targets of unrelated length.
-``myers_bigint`` is the JAX package's host oracle (Python big ints, no JAX),
-re-exported so that port scripts name only the port; it counts ``N``
-against ``N`` as a match, unlike the kernels' PEq.
+``myers_bigint`` (the port's copy of the JAX package's host oracle, Python
+big ints) is re-exported here; it counts ``N`` against ``N`` as a match,
+unlike the kernels' PEq.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from muchsalsa_tpu.ops.myers import myers_bigint
+from muchsalsa_tpu_torch.ops.myers import myers_bigint
 
 __all__ = ["mutate", "myers_bigint", "random_pairs", "random_seq"]
 

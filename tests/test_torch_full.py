@@ -14,9 +14,10 @@ import sys
 import pytest
 import torch
 
-from muchsalsa_tpu.config import DEFAULT_CONFIG
+from muchsalsa_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
 from muchsalsa_tpu.pipeline import cli as jax_cli
 from muchsalsa_tpu.pipeline.full import run_full_pipeline as jax_full
+from muchsalsa_tpu_torch.config import DEFAULT_CONFIG
 from muchsalsa_tpu_torch.pipeline import cli
 from muchsalsa_tpu_torch.pipeline import mapper_torch
 from muchsalsa_tpu_torch.pipeline.full import run_full_pipeline
@@ -32,8 +33,11 @@ def inputs(tmp_path_factory):
     return make_inputs(tmp_path_factory.mktemp("full_inputs"), seed=321)
 
 
-REFINE = dataclasses.replace(DEFAULT_CONFIG, mapper=dataclasses.replace(
-    DEFAULT_CONFIG.mapper, refine=True))
+def with_refine(cfg):
+    return dataclasses.replace(cfg, mapper=dataclasses.replace(cfg.mapper, refine=True))
+
+
+REFINE = with_refine(DEFAULT_CONFIG)
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +52,7 @@ def jax_run(inputs, tmp_path_factory):
 def jax_refined_run(inputs, tmp_path_factory):
     _genome, illu1, illu2, nano = inputs
     out = tmp_path_factory.mktemp("jax_full_refined")
-    jax_full(illu1, illu2, nano, out, REFINE, device_map=False)
+    jax_full(illu1, illu2, nano, out, with_refine(JAX_DEFAULT_CONFIG), device_map=False)
     return out
 
 
@@ -151,18 +155,24 @@ def test_full_and_config_cli(inputs, jax_run, tmp_path, capsys):
 
 def test_port_full_and_cli_load_no_jax(inputs, tmp_path):
     """In a process of its own, importing the port's ``full`` and CLI and
-    running ``map`` and ``full`` on the CPU loads no jax."""
+    running ``map`` and ``full`` on the CPU loads no jax and no module of
+    the JAX package."""
     _genome, illu1, illu2, nano = inputs
     code = "\n".join([
         "import sys",
         "import muchsalsa_tpu_torch.pipeline.full",
         "from muchsalsa_tpu_torch.pipeline import cli",
+        "def reference_modules():",
+        "    return sorted(m for m in sys.modules",
+        "                  if m == 'muchsalsa_tpu' or m.startswith('muchsalsa_tpu.'))",
         "assert 'jax' not in sys.modules, 'import loaded jax'",
+        "assert not reference_modules(), reference_modules()",
         f"assert cli.main(['full', '--illumina1', {str(illu1)!r}, '--nanopore', {str(nano)!r},"
         f" '--out', {str(tmp_path / 'out')!r}, '--device', 'cpu']) == 0",
         f"assert cli.main(['map', {str(tmp_path / 'out' / '01_unitigs.fa')!r}, {str(nano)!r},"
         f" {str(tmp_path / 'm.paf')!r}, '--device', 'cpu']) == 0",
         "assert 'jax' not in sys.modules, 'running full or map loaded jax'",
+        "assert not reference_modules(), reference_modules()",
     ])
     subprocess.run([sys.executable, "-c", code], check=True, timeout=600)
     assert (tmp_path / "out" / "03.assembly.unpolished.fa").exists()

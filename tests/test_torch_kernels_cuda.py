@@ -78,11 +78,11 @@ def test_chain_scan_kernel_rejects_mixed_devices(cuda):
 
 
 def test_port_edges_on_card_match_host(cuda, tmp_path):
-    from muchsalsa_tpu.io.paf import read_paf
-    from muchsalsa_tpu.matching.edges import build_edges
-    from muchsalsa_tpu.matching.store import MatchStore
-    from muchsalsa_tpu.testing.simulate import simulate, write_simulation
+    from muchsalsa_tpu_torch.io.paf import read_paf
+    from muchsalsa_tpu_torch.matching.edges import build_edges
     from muchsalsa_tpu_torch.matching.edges_torch import build_edges_device
+    from muchsalsa_tpu_torch.matching.store import MatchStore
+    from muchsalsa_tpu_torch.testing.simulate import simulate, write_simulation
 
     sim = simulate(np.random.default_rng(3), genome_length=40_000, coverage=9.0,
                    both_strands=True)
@@ -95,9 +95,9 @@ def test_port_edges_on_card_match_host(cuda, tmp_path):
 
 
 def test_port_golden_on_card(cuda, tmp_path):
-    from muchsalsa_tpu.config import Config
-    from muchsalsa_tpu.testing.simulate import simulate, write_simulation
     from muchsalsa_tpu_torch.assemble.driver import assemble
+    from muchsalsa_tpu_torch.config import Config
+    from muchsalsa_tpu_torch.testing.simulate import simulate, write_simulation
 
     # by path: another installed package named ``tests`` may shadow this
     # directory, which has no __init__.py
@@ -120,8 +120,11 @@ def test_port_golden_on_card(cuda, tmp_path):
     assert got == GOLDEN
 
 
-# M = 1100 takes the exact kernel's path with VP/VN in device memory
 ALIGN_SHAPES = [(P, M) for M in (31, 32, 33, 1000) for P in (1, 33, 512)] + [(33, 1100)]
+# the exact kernel: empty queries, segments of 1 to 32 lanes (M <= 1000), 2
+# and 4 words per lane (1100, 4096), and the device-memory class (9000)
+MYERS_FULL_SHAPES = ([(P, M) for M in (0, 1, 31, 33, 200, 1000, 4096) for P in (1, 33, 512)]
+                     + [(33, 1100), (1, 9000), (33, 9000)])
 
 
 def align_inputs(P, M, seed, device):
@@ -138,7 +141,7 @@ def check_kernel(kernel, reference, args, **kw):
     assert torch.equal(got, reference(*args, **kw))
 
 
-@pytest.mark.parametrize("P,M", ALIGN_SHAPES)
+@pytest.mark.parametrize("P,M", MYERS_FULL_SHAPES)
 def test_myers_full_kernel_matches_reference(cuda, P, M):
     check_kernel(myers_edit_distance, myers_edit_distance_reference,
                  align_inputs(P, M, P + M, cuda))
@@ -175,10 +178,9 @@ def test_align_kernels_reject_unsupported_shapes(cuda):
 
 
 def test_port_refinement_on_card_matches_cpu(cuda):
-    from muchsalsa_tpu.config import MapperConfig
-    from muchsalsa_tpu.io.fasta import SequenceStore
-    from muchsalsa_tpu.testing.simulate import add_noise, simulate
-    from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, map_all
+    from muchsalsa_tpu_torch.config import MapperConfig
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, SequenceStore, map_all
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, simulate
 
     sim = simulate(np.random.default_rng(41), genome_length=30_000, coverage=8.0,
                    read_length=5_000)
@@ -191,18 +193,19 @@ def test_port_refinement_on_card_matches_cpu(cuda):
     cfg = dataclasses.replace(MapperConfig(), refine=True)
     index = MinimizerIndex.build(unitigs, cfg)
     before = myers_edit_distance.launches
-    on_card = map_all(index, reads, cfg, unitigs=unitigs, torch_device=cuda)
+    on_card = map_all(index, reads, cfg, unitigs=unitigs, device=False, torch_device=cuda)
     assert myers_edit_distance.launches == before + 1
-    assert on_card == map_all(index, reads, cfg, unitigs=unitigs, torch_device="cpu")
+    assert on_card == map_all(index, reads, cfg, unitigs=unitigs, device=False,
+                              torch_device="cpu")
 
 
 def test_port_device_mapping_on_card_matches_cpu(cuda):
     """The six mapping stages on CUDA tensors give the CPU tensors' result,
     with and without refinement, and on a repeat set that takes tier 2."""
-    from muchsalsa_tpu.config import MapperConfig
-    from muchsalsa_tpu.io.fasta import SequenceStore
-    from muchsalsa_tpu.testing.simulate import add_noise, random_genome, simulate
+    from muchsalsa_tpu_torch.config import MapperConfig
     from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import SequenceStore
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, random_genome, simulate
 
     sim = simulate(np.random.default_rng(42), genome_length=60_000, coverage=8.0,
                    read_length=9_000)
@@ -226,5 +229,6 @@ def test_port_device_mapping_on_card_matches_cpu(cuda):
         assert on_card == on_cpu
         assert {k: mt.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS} == {
             k: stats[k] for k in mt._CUM_KEYS}
-        assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, torch_device=cuda)
+        assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, device=False,
+                                     torch_device=cuda)
     assert stats["tier2_reads"] > 0

@@ -4,9 +4,12 @@ package's mappers.
 Simulated reads and repeat-rich unitig sets (numpy, from seeds) are mapped
 by the port on CPU tensors and by the JAX package: its host ``map_all``,
 its ``map_all(device=True)`` and its ``map_all_with_device`` on one CPU
-device.  Tolerance: byte-equal PAF lines, equal ``Mapping`` lists and equal
-counters.
+device.  Each package maps its own stores, index and config, built from the
+same sequences.  Tolerance: byte-equal PAF lines, equal ``Mapping`` values
+and equal counters.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,7 +19,35 @@ from muchsalsa_tpu.config import MapperConfig
 from muchsalsa_tpu.io.fasta import SequenceStore
 from muchsalsa_tpu.pipeline import mapper as jax_mapper
 from muchsalsa_tpu.testing.simulate import add_noise, random_genome, simulate
+from muchsalsa_tpu_torch.config import MapperConfig as PortMapperConfig
+from muchsalsa_tpu_torch.io.fasta import SequenceStore as PortStore
+from muchsalsa_tpu_torch.pipeline import mapper as port_mapper
 from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+
+
+def port_store(store):
+    """The port's store of the same records, in the same id order."""
+    out = PortStore()
+    for rid, seq in store.items():
+        out.add(store.registry.name(rid), seq)
+    return out
+
+
+def port_side(unitigs, reads):
+    """(index, reads, config) of the port, built from the JAX package's
+    stores' sequences."""
+    cfg = PortMapperConfig()
+    return port_mapper.MinimizerIndex.build(port_store(unitigs), cfg), port_store(reads), cfg
+
+
+def values(per_read):
+    """``(read id, [Mapping...])`` lists of either package as plain tuples."""
+    return [(rid, [dataclasses.astuple(m) for m in maps]) for rid, maps in per_read]
+
+
+def host_values(index, reads, cfg):
+    """The JAX package's host ``map_read`` of every read, as plain tuples."""
+    return values((rid, jax_mapper.map_read(index, seq, cfg)) for rid, seq in reads.items())
 
 
 @pytest.fixture
@@ -75,7 +106,8 @@ def test_map_all_device_matches_jax_host_map_all():
     index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
     names = names_of(unitigs, reads)
     want = jax_mapper.map_all(index, reads, cfg, **names)
-    got = mt.map_all(index, reads, cfg, device=True, torch_device="cpu", **names)
+    p_index, p_reads, p_cfg = port_side(unitigs, reads)
+    got = mt.map_all(p_index, p_reads, p_cfg, device=True, torch_device="cpu", **names)
     assert "\n".join(got).encode() == "\n".join(want).encode()
     assert len(got) > 50
     assert mt.DEVICE_MAP_STATS["v2"] and mt.DEVICE_MAP_STATS["device"] == "cpu"
@@ -88,7 +120,7 @@ def test_map_all_device_matches_jax_device_map_all():
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
     want = jax_mapper.map_all(index, reads, cfg, device=True)
-    got = mt.map_all(index, reads, cfg, device=True, torch_device="cpu")
+    got = mt.map_all(*port_side(unitigs, reads), device=True, torch_device="cpu")
     assert got == want and len(got) > 20
 
 
@@ -102,12 +134,11 @@ def test_overflow_reads_fall_back_to_host_and_are_counted(one_jax_device):
     kw = dict(max_pos=256, max_per_hit=2)
     want = jax_mapper.map_all_with_device(index, reads, cfg, **kw)
     want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS}
-    got = mt.map_all_with_device(index, reads, cfg, device="cpu", **kw)
-    assert got == want
+    got = mt.map_all_with_device(*port_side(store, reads), device="cpu", **kw)
+    assert values(got) == values(want)
     assert stats_subset() == want_stats
     assert mt.DEVICE_MAP_STATS["tier2_reads"] + mt.DEVICE_MAP_STATS["overflow_reads"] >= 4
-    for rid, maps in got:
-        assert maps == jax_mapper.map_read(index, reads.sequence(rid), cfg)
+    assert values(got) == host_values(index, reads, cfg)
 
 
 def test_tier2_rescues_repeat_reads(one_jax_device, monkeypatch):
@@ -116,16 +147,16 @@ def test_tier2_rescues_repeat_reads(one_jax_device, monkeypatch):
     index = jax_mapper.MinimizerIndex.build(store, cfg)
     kw = dict(max_pos=1024, max_per_hit=2)
     want = jax_mapper.map_all_with_device(index, reads, cfg, **kw)
-    got = mt.map_all_with_device(index, reads, cfg, device="cpu", **kw)
-    assert got == want
+    port = port_side(store, reads)
+    got = mt.map_all_with_device(*port, device="cpu", **kw)
+    assert values(got) == values(want)
     assert mt.DEVICE_MAP_STATS["tier2_reads"] >= 4
     assert mt.DEVICE_MAP_STATS["overflow_reads"] == 0
-    for rid, maps in got:
-        assert maps == jax_mapper.map_read(index, reads.sequence(rid), cfg)
+    assert values(got) == host_values(index, reads, cfg)
 
     # with tier 2 off the same reads go to the host
     monkeypatch.setenv("MS_TPU_MAP_TIER2", "0")
-    assert mt.map_all_with_device(index, reads, cfg, device="cpu", **kw) == got
+    assert mt.map_all_with_device(*port, device="cpu", **kw) == got
     assert mt.DEVICE_MAP_STATS["tier2_reads"] == 0
     assert mt.DEVICE_MAP_STATS["overflow_reads"] >= 4
 
@@ -135,10 +166,10 @@ def test_tier2_cap_clamped_to_saturation_bound(monkeypatch):
     store, reads = repeat_stores(seed=52)
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(store, cfg)
-    out = mt.map_all_with_device(index, reads, cfg, max_pos=1024, max_per_hit=2, device="cpu")
+    out = mt.map_all_with_device(*port_side(store, reads), max_pos=1024, max_per_hit=2,
+                                 device="cpu")
     assert mt.DEVICE_MAP_STATS["tier2_reads"] >= 4
-    for rid, maps in out:
-        assert maps == jax_mapper.map_read(index, reads.sequence(rid), cfg)
+    assert values(out) == host_values(index, reads, cfg)
 
 
 def test_dense_budget_repull(one_jax_device):
@@ -152,14 +183,15 @@ def test_dense_budget_repull(one_jax_device):
     for i in range(12):
         reads.add(f"r{i}", store.sequence(i)[50:650])
 
-    roomy = mt.map_all_with_device(index, reads, cfg, max_pos=256, max_per_hit=4, device="cpu")
+    port = port_side(store, reads)
+    roomy = mt.map_all_with_device(*port, max_pos=256, max_per_hit=4, device="cpu")
     assert mt.DEVICE_MAP_STATS["dense_repulls"] == 0
-    tight = mt.map_all_with_device(index, reads, cfg, max_pos=256, max_per_hit=4,
-                                   hit_budget=2, device="cpu")
+    tight = mt.map_all_with_device(*port, max_pos=256, max_per_hit=4, hit_budget=2,
+                                   device="cpu")
     assert mt.DEVICE_MAP_STATS["dense_repulls"] >= 1
     assert tight == roomy
-    assert tight == jax_mapper.map_all_with_device(index, reads, cfg, max_pos=256,
-                                                   max_per_hit=4, hit_budget=2)
+    assert values(tight) == values(jax_mapper.map_all_with_device(
+        index, reads, cfg, max_pos=256, max_per_hit=4, hit_budget=2))
 
 
 def test_tier2_batches_not_cached_across_indexes():
@@ -179,22 +211,24 @@ def test_tier2_batches_not_cached_across_indexes():
     reads.add("rB", repB)   # goes to tier 2 only against index B
     reads.add("u", storeA.sequence(0)[:180])
 
-    outA = mt.map_all_with_device(idxA, reads, cfg, max_pos=1024, max_per_hit=2, device="cpu")
+    p_idxA, p_reads, p_cfg = port_side(storeA, reads)
+    p_idxB = port_side(storeB, reads)[0]
+    outA = mt.map_all_with_device(p_idxA, p_reads, p_cfg, max_pos=1024, max_per_hit=2,
+                                  device="cpu")
     assert mt.DEVICE_MAP_STATS["tier2_reads"] == 1
-    outB = mt.map_all_with_device(idxB, reads, cfg, max_pos=1024, max_per_hit=2, device="cpu")
+    outB = mt.map_all_with_device(p_idxB, p_reads, p_cfg, max_pos=1024, max_per_hit=2,
+                                  device="cpu")
     assert mt.DEVICE_MAP_STATS["tier2_reads"] == 1
-    for rid, maps in outA:
-        assert maps == jax_mapper.map_read(idxA, reads.sequence(rid), cfg)
-    for rid, maps in outB:
-        assert maps == jax_mapper.map_read(idxB, reads.sequence(rid), cfg)
-    cache = getattr(reads, mt._CACHE_ATTR)["cpu"][1]
+    assert values(outA) == host_values(idxA, reads, cfg)
+    assert values(outB) == host_values(idxB, reads, cfg)
+    cache = getattr(p_reads, mt._CACHE_ATTR)["cpu"][1]
     assert cache and all(key[0] != "t2" and not isinstance(key[1], tuple) for key in cache)
 
 
 def test_batch_cache_reuse_lru_cap_and_version(monkeypatch):
     unitigs, reads = sim_stores(53, 12_000, 6.0, 1_500)
-    cfg = MapperConfig()
-    index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
+    index, reads, cfg = port_side(unitigs, reads)
+    unitigs = port_store(unitigs)
     first = mt.map_all_with_device(index, reads, cfg, batch_reads=16, device="cpu")
     cache = getattr(reads, mt._CACHE_ATTR)["cpu"][1]
     n_batches = len(cache)
@@ -214,15 +248,11 @@ def test_batch_cache_reuse_lru_cap_and_version(monkeypatch):
     nbytes = next(iter(cache.values()))[1] if cache else 0
     one_mb = max(1, -(-nbytes // (1 << 20)))
     monkeypatch.setenv("MS_TPU_DEV_CACHE_MB", str(one_mb))
-    fresh = SequenceStore()
-    for rid, seq in reads.items():
-        fresh.add(reads.registry.name(rid), seq)
+    fresh = port_store(reads)
     assert mt.map_all_with_device(index, fresh, cfg, batch_reads=16, device="cpu") == again
     assert len(getattr(fresh, mt._CACHE_ATTR)["cpu"][1]) <= max(1, (one_mb << 20) // nbytes)
     monkeypatch.setenv("MS_TPU_DEV_CACHE_MB", "0")
-    empty_cap = SequenceStore()
-    for rid, seq in reads.items():
-        empty_cap.add(reads.registry.name(rid), seq)
+    empty_cap = port_store(reads)
     assert mt.map_all_with_device(index, empty_cap, cfg, batch_reads=16, device="cpu") == again
     assert not getattr(empty_cap, mt._CACHE_ATTR)["cpu"][1]
 
@@ -237,9 +267,10 @@ def test_cumulative_stats_accumulate():
     reads = SequenceStore()
     for i in range(3):
         reads.add(f"r{i}", store.sequence(i)[50:850])
+    port = port_side(store, reads)
     mt.DEVICE_MAP_STATS_CUM.clear()
-    mt.map_all_with_device(index, reads, cfg, device="cpu")
-    mt.map_all_with_device(index, reads, cfg, device="cpu")
+    mt.map_all_with_device(*port, device="cpu")
+    mt.map_all_with_device(*port, device="cpu")
     assert mt.DEVICE_MAP_STATS_CUM == {"total_reads": 6, "overflow_reads": 0,
                                        "tier2_reads": 0, "dense_repulls": 0}
 
@@ -247,10 +278,9 @@ def test_cumulative_stats_accumulate():
 def test_empty_store():
     store = SequenceStore()
     store.add("u0", random_genome(np.random.default_rng(1), 800))
-    cfg = MapperConfig()
-    index = jax_mapper.MinimizerIndex.build(store, cfg)
-    assert mt.map_all_with_device(index, SequenceStore(), cfg, device="cpu") == []
-    assert mt.map_all(index, SequenceStore(), cfg, device=True, torch_device="cpu") == []
+    index, _, p_cfg = port_side(store, SequenceStore())
+    assert mt.map_all_with_device(index, PortStore(), p_cfg, device="cpu") == []
+    assert mt.map_all(index, PortStore(), p_cfg, device=True, torch_device="cpu") == []
 
 
 def test_unpackable_index_maps_on_the_host_loudly():
@@ -259,24 +289,25 @@ def test_unpackable_index_maps_on_the_host_loudly():
     store, reads = repeat_stores(seed=54)
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(store, cfg)
-    out = mt.map_all_with_device(index, reads, cfg, max_per_hit=31, device="cpu")
+    out = mt.map_all_with_device(*port_side(store, reads), max_per_hit=31, device="cpu")
     assert mt.DEVICE_MAP_STATS["v2"] is False
     assert mt.DEVICE_MAP_STATS["overflow_reads"] == len(reads)
-    for rid, maps in out:
-        assert maps == jax_mapper.map_read(index, reads.sequence(rid), cfg)
+    assert values(out) == host_values(index, reads, cfg)
 
 
 def test_one_store_through_both_packages(one_jax_device):
     """The JAX and the port's batch caches live in separate attributes: a
-    store mapped by both, in turns, gets each package its own arrays."""
-    unitigs, reads = sim_stores(55, 12_000, 5.0, 2_000)
+    port store that the JAX package maps too, in turns, gets each package
+    its own arrays."""
+    unitigs, jax_reads = sim_stores(55, 12_000, 5.0, 2_000)
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
+    p_index, reads, p_cfg = port_side(unitigs, jax_reads)
     j1 = jax_mapper.map_all_with_device(index, reads, cfg)
-    t1 = mt.map_all_with_device(index, reads, cfg, device="cpu")
+    t1 = mt.map_all_with_device(p_index, reads, p_cfg, device="cpu")
     j2 = jax_mapper.map_all_with_device(index, reads, cfg)
-    t2 = mt.map_all_with_device(index, reads, cfg, device="cpu")
-    assert j1 == t1 == j2 == t2
+    t2 = mt.map_all_with_device(p_index, reads, p_cfg, device="cpu")
+    assert values(j1) == values(t1) == values(j2) == values(t2)
     assert reads._dev_batch_cache and getattr(reads, mt._CACHE_ATTR)["cpu"][1]
     for tensors, _sz in getattr(reads, mt._CACHE_ATTR)["cpu"][1].values():
         assert all(isinstance(t, torch.Tensor) for t in tensors)

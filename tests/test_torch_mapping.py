@@ -101,14 +101,14 @@ def test_pack_codes_matches_jax_and_round_trips():
         n = int(rng.integers(1, L))
         codes[i, :n] = rng.integers(0, 5, n)  # includes in-read N (=4)
     want = mj.pack_codes(codes)
-    got = mt.pack_codes(codes)
+    got = mt.pack_codes(codes, device="cpu")
     for a, b in zip(want, got):
         np.testing.assert_array_equal(b.numpy(), np64(a))
     np.testing.assert_array_equal(mt.unpack_codes(*got).numpy(), codes)
     np.testing.assert_array_equal(
         mt.unpack_codes(*got).numpy(), np.asarray(mj.unpack_codes(*map(jnp.asarray, want))))
     with pytest.raises(ValueError):
-        mt.pack_codes(codes[:, : L - 8])
+        mt.pack_codes(codes[:, : L - 8], device="cpu")
     with pytest.raises(ValueError):
         mt.unpack_codes(got[0], got[1][:, :-1])
 
@@ -143,17 +143,18 @@ def test_build_device_tables_none_cases():
     off = np.arange(33, dtype=np.int64)
     ent = (np.zeros(32, np.int32), np.arange(32, dtype=np.int32), np.zeros(32, bool))
     assert mj.build_device_tables(h, off, *ent) is None
-    assert mt.build_device_tables(h, off, *ent) is None
-    assert mt.build_device_tables(h[:31], off[:32], *(e[:31] for e in ent)) is not None
+    assert mt.build_device_tables(h, off, *ent, device="cpu") is None
+    assert mt.build_device_tables(h[:31], off[:32], *(e[:31] for e in ent),
+                                  device="cpu") is not None
     # entry offsets beyond 27 bits (refused before the entries are read)
     big = (np.array([5], np.uint32), np.array([0, 1 << 27], np.int64),
            np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(0, bool))
     assert mj.build_device_tables(*big) is None
-    assert mt.build_device_tables(*big) is None
+    assert mt.build_device_tables(*big, device="cpu") is None
     # the empty index
     empty = (np.zeros(0, np.uint32), np.zeros(1, np.int64), np.zeros(0, np.int32),
              np.zeros(0, np.int32), np.zeros(0, bool))
-    assert mt.build_device_tables(*empty) is None
+    assert mt.build_device_tables(*empty, device="cpu") is None
 
 
 def run_stages(index, reads, cfg, max_pos_cap=2048, mph=4, hit_budget=None):
@@ -272,8 +273,10 @@ def composed(index, reads, cfg, max_pos_cap=2048, mph=4, L=None):
     sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos_cap, mph)
     codes, lens = codes_of(seqs, L)
     tables, takes = mt.build_device_tables(
-        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand)
-    sk = mt.sketch_device_packed(*mt.pack_codes(codes), torch.from_numpy(lens), cfg.k, cfg.w)
+        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
+        device="cpu")
+    sk = mt.sketch_device_packed(*mt.pack_codes(codes, device="cpu"), torch.from_numpy(lens),
+                                 cfg.k, cfg.w)
     skey, h_s, n_sel = mt.select_compact_device_v2(*sk, max_sel=sel_L)
     rpv, cand = mt.probe_candidates_device_v2(skey, h_s, tables.rp)
     sel = mt.compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
@@ -332,7 +335,8 @@ def test_overflow_flag_on_a_six_times_repeated_unitig():
 def test_expand_refuses_max_per_hit_31(sim_data):
     _, reads, cfg, index = sim_data
     tables, takes = mt.build_device_tables(
-        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand)
+        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
+        device="cpu")
     z = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="31"):
         mt.expand_anchors_device_v2(z, z, z, torch.zeros(1, dtype=torch.bool), tables.jrows,

@@ -17,8 +17,9 @@ from muchsalsa_tpu.ops.myers_jax import myers_edit_distance as jax_myers_edit_di
 from muchsalsa_tpu.ops.myers_pallas import _geometry, myers_banded_pallas
 from muchsalsa_tpu_torch.ops.align_torch import pack_problems
 from muchsalsa_tpu_torch.ops.myers_torch import (
-    geometry, myers_banded, myers_banded_reference, myers_edit_distance,
-    myers_edit_distance_reference, pack_peq)
+    CLASS_WORDS_PER_LANE, STATE_CLASS, STEP_SLOTS, WORD_SLOTS, geometry, myers_banded,
+    myers_banded_reference, myers_edit_distance, myers_edit_distance_reference, pack_peq,
+    schedule_problems)
 from muchsalsa_tpu_torch.testing.pairs import random_pairs, random_seq
 
 WORD_EDGES = (31, 32, 33, 63, 64, 65, 96, 97)
@@ -168,3 +169,68 @@ def test_cpu_tensors_launch_nothing():
     myers_edit_distance(q, ql, t, tl)
     myers_banded(q, ql, t, tl, window_words=2)
     assert (myers_edit_distance.launches, myers_banded.launches) == before
+
+
+# the exact kernel's schedule: every register class and segment lengths of
+# 1 to 32 lanes (M <= 4096), and the device-memory class past 8,192 rows
+# (M = 9000)
+SCHEDULE_M = (0, 1, 31, 33, 200, 1000, 4096)
+SCHEDULE_COLS = 150
+
+
+def schedule_pairs(M):
+    """40 random pairs with longest query M and the edge cases; for M = 0,
+    empty queries against the targets of pairs of up to 50 bases."""
+    if M == 0:
+        return [(b"", t) for _, t in random_pairs(np.random.default_rng(900), 40, 50)]
+    return random_pairs(np.random.default_rng(900 + M), 40, M) + edge_pairs(M)
+
+
+def expected_class_and_segment(m):
+    """The cheapest (class, lanes) by the schedule's cost model, in ints."""
+    words = max(-(-m // 32), 1)
+    plans = [(-(-words // k) * (STEP_SLOTS + k * WORD_SLOTS), cls, -(-words // k))
+             for cls, k in enumerate(CLASS_WORDS_PER_LANE) if -(-words // k) <= 32]
+    if not plans:
+        return STATE_CLASS, 32
+    _cost, cls, lanes = min(plans)
+    return cls, lanes
+
+
+@pytest.mark.parametrize("M", SCHEDULE_M + (9000,))
+def test_schedule_orders_problems_by_class_segment_and_work(M):
+    (q, ql, t, tl), _ = packed(schedule_pairs(M))
+    order, groups, k_state = schedule_problems(ql, tl, SCHEDULE_COLS)
+    P = q.shape[0]
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(P))
+    assert [g[2] for g in groups] == list(np.cumsum([0] + [g[3] for g in groups])[:-1])
+    assert sum(g[3] for g in groups) == P
+    assert [(c, s) for c, s, _, _ in groups] == sorted({(c, s) for c, s, _, _ in groups},
+                                                         reverse=True)
+    m, n = ql.tolist(), tl.tolist()
+    for cls, seg, start, count in groups:
+        slots = order[start:start + count].tolist()
+        assert {expected_class_and_segment(m[p]) for p in slots} == {(cls, seg)}
+        work = [min(n[p], SCHEDULE_COLS) if m[p] > 0 else 0 for p in slots]
+        assert work == sorted(work, reverse=True)
+    words = max(-(-max(m) // 32), 1)
+    assert k_state == (-(-words // 32) if words > 32 * CLASS_WORDS_PER_LANE[-1] else 0)
+    assert (k_state > 0) == (M == 9000)
+
+
+@pytest.mark.parametrize("M", SCHEDULE_M)
+def test_schedule_round_trip_matches_jax(M):
+    """The problems in the kernel's order through the plain version, each
+    result scattered back to its problem's slot, give the JAX distances."""
+    ours, theirs = packed(schedule_pairs(M))
+    q, ql, t, tl = ours
+    order, _, _ = schedule_problems(ql, tl, SCHEDULE_COLS)
+    idx = order.long()
+    permuted = myers_edit_distance_reference(q[idx], ql[idx], t[idx], tl[idx],
+                                             max_n=SCHEDULE_COLS)
+    got = torch.empty_like(permuted)
+    got[idx] = permuted
+    want = np.asarray(jax_myers_edit_distance(*theirs, max_n=SCHEDULE_COLS))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(myers_edit_distance(*ours, max_n=SCHEDULE_COLS).numpy(), want)

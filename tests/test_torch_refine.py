@@ -3,7 +3,8 @@
 A simulated genome (numpy, from a seed) with nanopore-style noise on the
 reads is mapped on the host; the same mappings are refined by the JAX
 package and by the port on the CPU, and the whole ``map_all`` with
-``cfg.refine`` is run by both.  Tolerance: exact equality of every
+``cfg.refine`` is run by both, each package on its own stores, index and
+mappings of the same sequences.  Tolerance: exact equality of every
 mapping's ``matches`` and of every PAF line.
 """
 
@@ -21,27 +22,42 @@ from muchsalsa_tpu.ops.myers_pallas import myers_banded_pallas
 from muchsalsa_tpu.pipeline import mapper as jax_mapper
 from muchsalsa_tpu.testing.simulate import add_noise, simulate
 from muchsalsa_tpu.utils.seq import reverse_complement
+from muchsalsa_tpu_torch.config import MapperConfig as PortMapperConfig
+from muchsalsa_tpu_torch.io.fasta import SequenceStore as PortStore
 from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+from muchsalsa_tpu_torch.pipeline import mapper as port_mapper
 from muchsalsa_tpu_torch.pipeline import mapper_torch
+
+
+def _dataset(store_cls, cfg_cls, mapper):
+    """~30 kb genome, 8x of 5 kb reads with 8 % noise, 1 kb unitigs, in one
+    package's stores: (unitigs, reads, config, index, host mappings)."""
+    sim = simulate(np.random.default_rng(41), genome_length=30_000, coverage=8.0,
+                   read_length=5_000)
+    unitigs = store_cls()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    reads = store_cls()
+    rng = np.random.default_rng(1)
+    for name, seq in sim.read_records():
+        reads.add(name, add_noise(rng, seq, 0.08))
+    cfg = cfg_cls()
+    index = mapper.MinimizerIndex.build(unitigs, cfg)
+    per_read = [(rid, mapper.map_read(index, seq, cfg)) for rid, seq in reads.items()]
+    assert sum(len(maps) for _, maps in per_read) > 20
+    return unitigs, reads, cfg, index, per_read
 
 
 @pytest.fixture(scope="module")
 def dataset():
-    """~30 kb genome, 8x of 5 kb reads with 8 % noise, 1 kb unitigs."""
-    sim = simulate(np.random.default_rng(41), genome_length=30_000, coverage=8.0,
-                   read_length=5_000)
-    unitigs = SequenceStore()
-    for name, seq in sim.unitig_records():
-        unitigs.add(name, seq)
-    reads = SequenceStore()
-    rng = np.random.default_rng(1)
-    for name, seq in sim.read_records():
-        reads.add(name, add_noise(rng, seq, 0.08))
-    cfg = MapperConfig()
-    index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
-    per_read = [(rid, jax_mapper.map_read(index, seq, cfg)) for rid, seq in reads.items()]
-    assert sum(len(maps) for _, maps in per_read) > 20
-    return unitigs, reads, cfg, index, per_read
+    """The JAX package's objects."""
+    return _dataset(SequenceStore, MapperConfig, jax_mapper)
+
+
+@pytest.fixture(scope="module")
+def port_dataset():
+    """The port's objects of the same sequences."""
+    return _dataset(PortStore, PortMapperConfig, port_mapper)
 
 
 def matches(per_read):
@@ -56,24 +72,26 @@ def refined(dataset, refine, **kw):
 
 
 @pytest.mark.parametrize("engine,band", [("myers", 256), ("wavefront", 256), ("wavefront", 128)])
-def test_refine_mappings_matches_jax(dataset, engine, band):
+def test_refine_mappings_matches_jax(dataset, port_dataset, engine, band):
     before = matches(dataset[4])
+    assert matches(port_dataset[4]) == before
     want = refined(dataset, jax_mapper.refine_mappings, band=band, engine=engine,
                    use_pallas=False)
-    got = refined(dataset, mapper_torch.refine_mappings, band=band, engine=engine,
+    got = refined(port_dataset, mapper_torch.refine_mappings, band=band, engine=engine,
                   use_pallas=False, device="cpu")
     assert got == want
     assert got != before
 
 
-def test_refine_mappings_use_pallas_none_on_cpu_is_the_wavefront(dataset):
-    assert (refined(dataset, mapper_torch.refine_mappings, engine="wavefront", device="cpu")
-            == refined(dataset, mapper_torch.refine_mappings, engine="wavefront",
+def test_refine_mappings_use_pallas_none_on_cpu_is_the_wavefront(port_dataset):
+    assert (refined(port_dataset, mapper_torch.refine_mappings, engine="wavefront",
+                    device="cpu")
+            == refined(port_dataset, mapper_torch.refine_mappings, engine="wavefront",
                        use_pallas=False, device="cpu"))
 
 
 @pytest.mark.parametrize("band", (128, 256))
-def test_refine_mappings_banded_myers_matches_pallas(dataset, band):
+def test_refine_mappings_banded_myers_matches_pallas(dataset, port_dataset, band):
     """The JAX branch would compile for a TPU, so the reference applies
     the interpret-mode Pallas distances to the JAX-packed regions itself."""
     unitigs, reads, _, _, per_read = dataset
@@ -92,47 +110,53 @@ def test_refine_mappings_banded_myers_matches_pallas(dataset, band):
     for m, (q, t), d in zip(slots, pairs, dists):
         if d >= 0:
             m.matches = max(len(q), len(t)) - int(d)
-    got = refined(dataset, mapper_torch.refine_mappings, band=band, engine="wavefront",
+    got = refined(port_dataset, mapper_torch.refine_mappings, band=band, engine="wavefront",
                   use_pallas=True, device="cpu")
     assert got == matches(want)
 
 
-def test_map_all_with_refinement_matches_jax(dataset):
+def test_map_all_with_refinement_matches_jax(dataset, port_dataset):
     unitigs, reads, cfg, index, _ = dataset
     cfg = dataclasses.replace(cfg, refine=True)
     names = dict(unitig_names=lambda u: unitigs.registry.name(u),
                  read_names=lambda r: reads.registry.name(r))
     want = jax_mapper.map_all(index, reads, cfg, unitigs=unitigs, **names)
+    unitigs, reads, cfg, index, _ = port_dataset
+    cfg = dataclasses.replace(cfg, refine=True)
     stats = {}
     before = myers_edit_distance.launches
-    got = mapper_torch.map_all(index, reads, cfg, unitigs=unitigs, torch_device="cpu",
-                               stats=stats, **names)
+    got = mapper_torch.map_all(index, reads, cfg, unitigs=unitigs, device=False,
+                               torch_device="cpu", stats=stats, **names)
     assert got == want
     assert myers_edit_distance.launches == before  # CPU tensors: the plain version
     unrefined = mapper_torch.map_all(index, reads, dataclasses.replace(cfg, refine=False),
-                                     unitigs=unitigs, torch_device="cpu", **names)
+                                     unitigs=unitigs, device=False, torch_device="cpu",
+                                     **names)
     assert len(unrefined) == len(got) and unrefined != got
     assert stats["problems"] == len(got)
     assert stats["packed"][0].shape == (stats["problems"], stats["M"])
     assert stats["packed"][0].device.type == "cpu"
 
 
-def test_map_all_device_mapping_raises(dataset, monkeypatch):
-    """Device mapping asked of a machine without a card raises; it never
-    maps on the host instead."""
-    unitigs, reads, cfg, index, _ = dataset
+def test_map_all_device_mapping_raises(dataset, port_dataset, monkeypatch):
+    """Device mapping asked of a machine without a card raises, and it is
+    the default; it never maps on the host instead."""
+    _, j_reads, j_cfg, j_index, _ = dataset
+    unitigs, reads, cfg, index, _ = port_dataset
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        mapper_torch.map_all(index, reads, cfg, device=True)
-    assert mapper_torch.map_all(index, reads, cfg) == jax_mapper.map_all(index, reads, cfg)
+    for kw in ({"device": True}, {}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mapper_torch.map_all(index, reads, cfg, **kw)
+    assert (mapper_torch.map_all(index, reads, cfg, device=False)
+            == jax_mapper.map_all(j_index, j_reads, j_cfg))
 
 
-def test_cuda_request_without_a_card_raises(dataset, monkeypatch):
-    unitigs, reads, cfg, index, per_read = dataset
+def test_cuda_request_without_a_card_raises(port_dataset, monkeypatch):
+    unitigs, reads, cfg, index, per_read = port_dataset
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mapper_torch.map_all(index, reads, dataclasses.replace(cfg, refine=True),
-                             unitigs=unitigs)
+                             unitigs=unitigs, device=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mapper_torch.refine_mappings(copy.deepcopy(per_read), reads, unitigs, device="cuda")
     with pytest.raises(ValueError):
