@@ -108,10 +108,11 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.ms_chain_scan.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+            lib.ms_chain_dp.argtypes = [vp] * 5 + [ci] * 3 + [ctypes.c_double, vp]
             lib.ms_myers_full.argtypes = [vp] * 7 + [ctypes.POINTER(ci)] + [ci] * 6 + [vp]
             lib.ms_myers_banded.argtypes = [vp] * 6 + [ci] * 9 + [vp]
             lib.ms_banded_wavefront.argtypes = [vp] * 5 + [ci] * 5 + [vp]
-            for fn in (lib.ms_chain_scan, lib.ms_myers_full, lib.ms_myers_banded,
+            for fn in (lib.ms_chain_scan, lib.ms_chain_dp, lib.ms_myers_full, lib.ms_myers_banded,
                        lib.ms_banded_wavefront):
                 fn.restype = ci
             lib.ms_cuda_error_string.argtypes = [ci]

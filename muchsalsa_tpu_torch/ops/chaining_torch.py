@@ -1,12 +1,12 @@
 """Batched, bucketized anchor-chaining DP on a torch device.
 
 Port of ``muchsalsa_tpu/ops/chaining_jax.py``.  Every (edge, strand-class)
-problem is one row of a padded (B, K) batch; the (B, K, K) compatibility
-matrix is built with batched tensor ops (``compat_init_batch``), the forward
-DP runs in the chain-scan kernel (``ops/chain_scan.py``), and only the
-per-problem scores and backpointers return to the host, where chain
-reconstruction and the selection rules reuse the oracle's
-``finalize_paths``.
+problem is one row of a padded (B, K) batch, packed on the host into pinned
+memory (``state.py``) and copied to the card once; the fused kernel
+``chain_dp`` (``ops/chain_scan.py``) builds each problem's compatibility and
+runs its forward DP, and only the per-problem scores and backpointers
+return to the host, where chain reconstruction and the selection rules
+reuse the oracle's ``finalize_paths``.
 
 Arithmetic is float64 on every device, bit-equal to the JAX package on the
 CPU and to the host oracle ``ops.chaining.check_compatibility``.
@@ -22,108 +22,18 @@ from muchsalsa_tpu_torch.ops.chaining import (
     ChainResult, EdgeContext, GatheredMatches, finalize_paths, max_pairwise_paths)
 from muchsalsa_tpu_torch.ops.overlap import get_overlap
 from muchsalsa_tpu_torch.device import resolve_device
-from muchsalsa_tpu_torch.ops.chain_scan import NEG, chain_scan
-from muchsalsa_tpu_torch.state import batch_to_torch
+from muchsalsa_tpu_torch.ops.chain_scan import chain_dp, compat_init_batch  # noqa: F401
+from muchsalsa_tpu_torch.state import FLOAT_FIELDS, pack_batch, pack_flags
 
 Tensor = torch.Tensor
 
 
-def _corrected(ns, ne, is_, ie, rr, vdir, ov_s, ov_e):
-    """(B, K) anchor ranges corrected by rRatio-projected overlap trimming."""
-    ncl = (ov_s - is_) / rr
-    ncr = (ie - ov_e) / rr
-    lo = ns + torch.where(vdir, ncl, ncr)
-    hi = ne - torch.where(vdir, ncr, ncl)
-    return lo, hi
-
-
-def _pair_orientation(lo: Tensor, hi: Tensor) -> tuple[Tensor, Tensor]:
-    """All-pairs orientation codes in {-2,-1,0,1,2} and gap diffs, (B, K, K)
-    with [b, k, l] describing anchors (k, l) — mpp.cpp:67-91."""
-    a_lo, a_hi = lo[:, :, None], hi[:, :, None]
-    b_lo, b_hi = lo[:, None, :], hi[:, None, :]
-    intersect = (a_lo <= b_hi) & (b_lo <= a_hi)
-
-    fwd = (a_lo < b_lo) & (a_hi < b_hi)
-    bwd = (a_lo > b_lo) & (a_hi > b_hi)
-    ori_int = torch.where(bwd, -2, torch.where(fwd, 2, 0))
-    diff_int = torch.where(
-        bwd, b_hi - a_lo + 1.0, torch.where(fwd, a_hi - b_lo + 1.0, 0.0))
-
-    lt = a_lo < b_lo
-    ori_dis = torch.where(lt, 1, -1)
-    diff_dis = torch.where(lt, b_lo - a_hi + 1.0, a_lo - b_hi + 1.0)
-
-    ori = torch.where(intersect, ori_int, ori_dis)
-    diff = torch.where(intersect, diff_int, diff_dis)
-    return ori, diff
-
-
-def _vertex_abort(ns: Tensor, ne: Tensor, ori: Tensor) -> Tensor:
-    """Abort where corrected and uncorrected orientations disagree in sign
-    over intersecting uncorrected ranges (mpp.cpp:93-109)."""
-    a_s, a_e = ns[:, :, None], ne[:, :, None]
-    b_s, b_e = ns[:, None, :], ne[:, None, :]
-    intersect = (a_s <= b_e) & (b_s <= a_e)
-    fwd = (a_s < b_s) & (a_e < b_e)
-    bwd = (a_s > b_s) & (a_e > b_e)
-    uco = torch.where(bwd, -2, torch.where(fwd, 2, 0))
-    return intersect & (((ori < 0) & (uco >= 0)) | ((ori > 0) & (uco <= 0)))
-
-
-def _single_compat(b: dict[str, Tensor], wiggle_room: float) -> tuple[Tensor, Tensor]:
-    """(B, K, K) compatibility + (B, K) initial scores (mpp.cpp:38-142),
-    the JAX package's per-problem ``_single_compat`` with the vmap written
-    out as the leading B axis."""
-    v_lo, v_hi = _corrected(
-        b["v_ns"], b["v_ne"], b["v_is"], b["v_ie"], b["v_rr"], b["v_dir"],
-        b["ov_s"], b["ov_e"],
-    )
-    w_lo, w_hi = _corrected(
-        b["w_ns"], b["w_ne"], b["w_is"], b["w_ie"], b["w_rr"], b["w_dir"],
-        b["ov_s"], b["ov_e"],
-    )
-
-    o1, d1 = _pair_orientation(v_lo, v_hi)
-    o2, d2 = _pair_orientation(w_lo, w_hi)
-
-    abort = _vertex_abort(b["v_ns"], b["v_ne"], o1) | _vertex_abort(
-        b["w_ns"], b["w_ne"], o2
-    )
-
-    o2 = torch.where(b["cls_dir"][:, None, None], o2, -o2)
-
-    same_nz = (o1 == o2) & (o1 != 0)
-    mx = torch.maximum(d1, d2)
-    diff = mx - torch.minimum(d1, d2)
-    # mx == 0 divides by zero; the where masks it exactly as the JAX code does
-    rel = torch.where(mx != 0, diff * 100.0 / mx, float("inf"))
-    rule1 = same_nz & ((diff <= wiggle_room) | (rel <= 15.0))
-    rule2 = (
-        ~same_nz
-        & (((o1 < 0) & (o2 < 0)) | ((o1 > 0) & (o2 > 0)))
-        & (d1 + d2 <= wiggle_room)
-    )
-
-    valid = b["valid"]
-    valid_pair = valid[:, :, None] & valid[:, None, :]
-    compat = ~abort & (rule1 | rule2) & valid_pair
-    init = torch.where(valid, b["score"], NEG)
-    return compat, init
-
-
-def compat_init_batch(batch: dict[str, Tensor], wiggle_room: int) -> tuple[Tensor, Tensor]:
-    """(B, K, K) bool compatibility matrices + (B, K) float64 initial scores."""
-    return _single_compat(batch, float(wiggle_room))
-
-
 def chain_dp_batch_kernel(batch: dict[str, Tensor], wiggle_room: int) -> tuple[Tensor, Tensor]:
-    """``compat_init_batch`` followed by the chain-scan kernel (the
-    counterpart of ``chain_dp_batch_pallas``): per-problem DP scores (B, K)
-    and int32 backpointers.  On CPU tensors the scan is the kernel's plain
-    version ``chain_scan_reference``."""
-    compat, init = compat_init_batch(batch, wiggle_room)
-    return chain_scan(compat, init)
+    """The per-field batch (``state.batch_to_torch``) packed and run through
+    the fused chaining kernel ``chain_dp`` (the counterpart of
+    ``chain_dp_batch_pallas``): per-problem DP scores (B, K) and int32
+    backpointers.  On CPU tensors it runs the plain ``chain_dp_reference``."""
+    return chain_dp(*pack_batch(batch), batch["valid"].shape[1], wiggle_room)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +45,31 @@ _FIELD_MAP = {
     "w_ns": "w_ns", "w_ne": "w_ne", "w_is": "w_is", "w_ie": "w_ie", "w_rr": "w_rr",
     "ov_s": "ov_start", "ov_e": "ov_end", "score": "em_score",
 }
+
+
+def bucket_batch(
+    f: dict[str, np.ndarray], src: np.ndarray, sizes: np.ndarray, cls_dir: np.ndarray,
+    B: int, *, pin: bool,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """One bucket's packed batch (``state.py``) on the host, in pinned
+    memory when ``pin``: the anchors ``src`` (rows of ``f``, the
+    ``GatheredMatches`` fields), problem by problem, the first
+    ``len(sizes)`` of the B problems holding ``sizes`` anchors and strand
+    class ``cls_dir``, the rest none."""
+    fields = torch.empty((len(FLOAT_FIELDS), len(src)), dtype=torch.float64, pin_memory=pin)
+    fv = fields.numpy()
+    for i, bf in enumerate(FLOAT_FIELDS):
+        fv[i] = f[_FIELD_MAP[bf]][src]
+    flags = torch.empty((len(src),), dtype=torch.uint8, pin_memory=pin)
+    flags.numpy()[:] = pack_flags(f["v_dir"][src].astype(np.uint8),
+                                  f["w_dir"][src].astype(np.uint8),
+                                  np.repeat(cls_dir.astype(np.uint8), sizes))
+    offsets = torch.empty((B + 1,), dtype=torch.int32, pin_memory=pin)
+    ov = offsets.numpy()
+    ov[0] = 0
+    np.cumsum(sizes, out=ov[1 : len(sizes) + 1])
+    ov[len(sizes) + 1 :] = len(src)
+    return fields, flags, offsets
 
 
 def chaining_phase_device(
@@ -213,30 +148,13 @@ def chaining_phase_device(
         K = bucket
         sel_sizes = sizes[probs]
         total = int(sel_sizes.sum())
-        prob_of_row = np.repeat(np.arange(nb), sel_sizes)
         row_pos = np.arange(total) - np.repeat(np.cumsum(sel_sizes) - sel_sizes, sel_sizes)
         src = order[np.repeat(starts[probs], sel_sizes) + row_pos]
-        dest = prob_of_row * K + row_pos
 
-        arrs = {}
-        for bf, gf in _FIELD_MAP.items():
-            a = np.zeros(B * K, dtype=np.float64)
-            if bf in ("v_rr", "w_rr"):
-                a[:] = 1.0  # padding: avoid div-by-zero; masked anyway
-            a[dest] = f[gf][src]
-            arrs[bf] = a.reshape(B, K)
-        for bf, gf in (("v_dir", "v_dir"), ("w_dir", "w_dir")):
-            a = np.zeros(B * K, dtype=bool)
-            a[dest] = f[gf][src]
-            arrs[bf] = a.reshape(B, K)
-        valid = np.zeros(B * K, dtype=bool)
-        valid[dest] = True
-        arrs["valid"] = valid.reshape(B, K)
-        cls_dir = np.zeros(B, dtype=bool)
-        cls_dir[:nb] = prob_dir[probs]
-        arrs["cls_dir"] = cls_dir
-
-        scores_dev, bps_dev = chain_dp_batch_kernel(batch_to_torch(arrs, dev), int(wiggle_room))
+        # one packed batch of the anchors in pinned memory, one copy each way
+        packed = bucket_batch(f, src, sel_sizes, prob_dir[probs], B, pin=dev.type == "cuda")
+        scores_dev, bps_dev = chain_dp(*(x.to(dev, non_blocking=True) for x in packed), K,
+                                       int(wiggle_room))
         # one transfer per bucket, not per problem
         scores_np = scores_dev.cpu().numpy()
         bps_np = bps_dev.cpu().numpy()

@@ -337,7 +337,9 @@ def myers_banded(
     (P,) int32, -1 outside the band.
 
     On CUDA tensors this launches ``csrc/myers_banded.cu`` on the current
-    stream (``window_words`` in 1..8) and counts the launch in
+    stream (``window_words`` in 1..8; the launch first orders the problems
+    on the card by their blocks of work, so that a warp's problems end
+    together, with out-of-band ones last) and counts the launch in
     ``myers_banded.launches``; on CPU tensors it runs
     ``myers_banded_reference``.
     """
@@ -355,7 +357,8 @@ def myers_banded(
     out = torch.empty((P,), dtype=torch.int32, device=dev)
     if P == 0:
         return out
-    peq = torch.empty((4, n_words, P), dtype=torch.int32, device=dev)
+    # the problems' order and its 1024 bucket counters, written by the launch
+    scratch = torch.empty((P + 1024,), dtype=torch.int32, device=dev)
 
     from muchsalsa_tpu_torch import kernels
 
@@ -363,7 +366,7 @@ def myers_banded(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ms_myers_banded(
-            *_launch_args(q_codes, q_lens, t_codes, t_lens, out, peq),
+            *_launch_args(q_codes, q_lens, t_codes, t_lens, scratch, out),
             P, M, N, n_words, WB, n_blocks, klo, khi, h, ctypes.c_void_p(stream))
     kernels.check(lib, code, f"myers_banded launch (P={P}, M={M}, N={N}, WB={WB})")
     myers_banded.launches += 1

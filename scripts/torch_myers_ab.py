@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Time the exact Myers kernel of two trees of the port on one batch, in turns.
+"""Time a Myers kernel of two trees of the port on one batch, in turns.
 
-    PYTHONPATH=. python3 scripts/torch_myers_ab.py --base DIR [--reps 20] [--out FILE]
+    PYTHONPATH=. python3 scripts/torch_myers_ab.py --base DIR [--kernel {full,banded}]
+        [--reps 20] [--out FILE]
 
 Builds the refinement batch of ``chip_smoke.py`` phase 7 (the E. coli-scale
 simulation, reads with 8 % noise, host mapping, every mapped region packed
 as ``refine_mappings`` packs it), saves it, and runs ``myers_edit_distance``
-of the tree ``--base`` (an unpacked checkout, such as the parent commit) and
-of this tree in turns, base, this, this, base, each in a process of its own
+(``--kernel full``, the default) or ``myers_banded`` at 8 window words
+(``--kernel banded``, the wavefront engine's kernel at band 256) of the tree
+``--base`` (an unpacked checkout, such as the parent commit) and of this
+tree in turns, base, this, this, base, each in a process of its own
 that builds its tree's kernels.  Each turn prints the median CUDA-event ms
 of one call, the median of the wrapper's launch plan alone
 (``schedule_problems``, null for a tree without one), the host wall of the
 process's first call (the kernel library already loaded), and a hash of the
-distances; the four hashes must agree.  The
+distances; the four hashes must agree.  Each turn
+also gives the device time of every kernel its calls launch, per launch,
+from ``torch.profiler`` (``device_ms``: the kernel alone, without the
+wrapper's host work that the event window holds).  The
 summary line holds the batch's bound (15 int32 ops per (column, word) step
 at 64 ops per clock per SM and the card's maximum SM clock, or the bytes at
-3.35 TB/s, whichever is larger).  Needs one NVIDIA GPU.
+3.35 TB/s, whichever is larger; the banded kernel steps its 8 window words
+over the columns of the problems inside the band).  Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -36,17 +43,19 @@ import hashlib, json, statistics, sys, time
 import torch
 from muchsalsa_tpu_torch import kernels
 from muchsalsa_tpu_torch.ops import myers_torch
-from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 args = tuple(x.cuda() for x in torch.load(sys.argv[1]))
 reps = int(sys.argv[2])
+banded = sys.argv[3] == "banded"
+call = (lambda *a: myers_banded(*a, window_words=8)) if banded else myers_edit_distance
 kernels.load()
 torch.cuda.synchronize()
 t0 = time.perf_counter()
-out = myers_edit_distance(*args)
+out = call(*args)
 torch.cuda.synchronize()
 first_ms = (time.perf_counter() - t0) * 1e3
 for _ in range(2):
-    myers_edit_distance(*args)
+    call(*args)
 torch.cuda.synchronize()
 def event_ms(fn):
     times = []
@@ -58,21 +67,32 @@ def event_ms(fn):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
-times = event_ms(lambda: myers_edit_distance(*args))
-# the wrapper's launch plan alone (sort, counts, the host table), where the tree has one
-schedule = getattr(myers_torch, "schedule_problems", None)
+times = event_ms(lambda: call(*args))
+# the exact wrapper's launch plan alone (sort, counts, the host table), where the tree has one
+schedule = None if banded else getattr(myers_torch, "schedule_problems", None)
 schedule_ms = (statistics.median(event_ms(lambda: schedule(args[1], args[3], args[2].shape[1])))
                if schedule else None)
-print(json.dumps({"ms": statistics.median(times), "min_ms": min(times), "max_ms": max(times),
-                  "schedule_ms": schedule_ms, "first_call_ms": first_ms,
+# device time of each kernel a call launches (CUPTI), per call
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        call(*args)
+    torch.cuda.synchronize()
+averages = prof.key_averages()
+col = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
+device_ms = {e.key[:80]: getattr(e, col) / e.count / 1e3 for e in averages
+             if e.device_type == DeviceType.CUDA and getattr(e, col)}
+print(json.dumps({"ms": statistics.median(times), "device_ms": device_ms,
+                  "min_ms": min(times), "max_ms": max(times), "schedule_ms": schedule_ms, "first_call_ms": first_ms,
                   "sha256": hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()}))
 """
 
 
-def refinement_batch(path: Path) -> tuple[int, int, int, float, int, float]:
+def refinement_batch(path: Path, banded: bool) -> tuple[int, int, int, float, int, float]:
     """The phase-7 batch, saved to ``path`` as CPU tensors; returns its
-    shape (P, M, N), the wall of building it, the Myers ops it needs and
-    its bytes."""
+    shape (P, M, N), the wall of building it, the Myers ops the kernel
+    needs on it and its bytes."""
     import time
 
     import numpy as np
@@ -99,7 +119,15 @@ def refinement_batch(path: Path) -> tuple[int, int, int, float, int, float]:
     torch.save(packed, path)
     q, ql, t, tl = packed
     m, n = ql.long(), tl.long()
-    ops = 15 * int(((m + 31) // 32 * n).sum())
+    if banded:
+        from muchsalsa_tpu_torch.ops.myers_torch import geometry
+
+        klo, khi, _h = geometry(8)
+        diff = n - m
+        in_band = (diff - klo >= 32) & (khi - diff >= 32) & (m > 0) & (n > 0)
+        ops = 15 * 8 * int(torch.where(in_band, n, 0).sum())
+    else:
+        ops = 15 * int(((m + 31) // 32 * n).sum())
     nbytes = q.numel() + t.numel() + 12 * q.shape[0]
     return q.shape[0], q.shape[1], t.shape[1], time.perf_counter() - t0, ops, nbytes
 
@@ -107,6 +135,7 @@ def refinement_batch(path: Path) -> tuple[int, int, int, float, int, float]:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", required=True, type=Path, help="the other tree (a checkout)")
+    ap.add_argument("--kernel", choices=("full", "banded"), default="full")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", type=Path, default=None, help="also write the lines here")
     args = ap.parse_args(argv)
@@ -130,13 +159,14 @@ def main(argv: list[str] | None = None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="ms_myers_ab_") as td:
         batch = Path(td) / "batch.pt"
-        P, M, N, build_s, ops, nbytes = refinement_batch(batch)
+        P, M, N, build_s, ops, nbytes = refinement_batch(batch, args.kernel == "banded")
         ops_ms = ops / (64 * sms * float(clock_mhz) * 1e6) * 1e3
         bytes_ms = nbytes / 3.35e12 * 1e3
         hashes = set()
         for turn, tree in enumerate((args.base, REPO, REPO, args.base)):
             env = dict(os.environ, PYTHONPATH=str(tree.resolve()))
-            proc = subprocess.run([sys.executable, "-c", _TURN, str(batch), str(args.reps)],
+            proc = subprocess.run([sys.executable, "-c", _TURN, str(batch), str(args.reps),
+                                   args.kernel],
                                   capture_output=True, text=True, env=env,
                                   cwd=tree.resolve(), timeout=900)
             if proc.returncode != 0:
@@ -145,7 +175,7 @@ def main(argv: list[str] | None = None) -> int:
             row = json.loads(proc.stdout.strip().splitlines()[-1])
             hashes.add(row["sha256"])
             emit(turn=turn, tree="base" if tree == args.base else "this", **row)
-        emit(card=f"{name}, {power} W", sms=sms, clocks_max_sm_mhz=float(clock_mhz), P=P, M=M,
+        emit(card=f"{name}, {power} W", kernel=args.kernel, sms=sms, clocks_max_sm_mhz=float(clock_mhz), P=P, M=M,
              N=N, batch_build_s=build_s, myers_ops=ops, bytes=nbytes,
              bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms
              else "bytes", identical=len(hashes) == 1)

@@ -14,9 +14,14 @@ from __graft_entry__ import _example_batch
 from muchsalsa_tpu.ops.chaining_jax import chain_dp_batch as jax_chain_dp_batch
 from muchsalsa_tpu.ops.chaining_jax import compat_init_batch as jax_compat_init_batch
 from muchsalsa_tpu.ops.chaining_pallas import chain_scan_pallas
-from muchsalsa_tpu_torch.ops.chain_scan import NEG, chain_scan, chain_scan_reference
-from muchsalsa_tpu_torch.ops.chaining_torch import chain_dp_batch_kernel, compat_init_batch
-from muchsalsa_tpu_torch.state import batch_to_torch
+from muchsalsa_tpu_torch.ops.chain_scan import (
+    NEG, chain_dp, chain_dp_reference, chain_scan, chain_scan_reference)
+from muchsalsa_tpu_torch.ops.chaining_torch import (
+    _FIELD_MAP, bucket_batch, chain_dp_batch_kernel, compat_init_batch)
+from muchsalsa_tpu_torch.state import batch_to_torch, pack_batch, unpack_batch
+from muchsalsa_tpu_torch.testing.chains import KINDS, WIGGLE_ROOM, chain_batch
+
+BUCKETS = (8, 16, 32, 64, 128)
 
 
 def random_scan_inputs(B, K, seed):
@@ -117,3 +122,151 @@ def test_reference_is_the_wrapper_on_cpu():
     s1, b1 = chain_scan(torch.from_numpy(compat), torch.from_numpy(init))
     assert torch.equal(s0, s1) and torch.equal(b0, b1)
     assert chain_scan.launches == before  # the plain version is no launch
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("K", BUCKETS)
+def test_chain_dp_matches_jax(K, kind):
+    """The packed batch through chain_dp on CPU tensors (its plain version)
+    equals the JAX package's chain_dp_batch on the same numpy batch."""
+    arrs = chain_batch(9, K, kind, seed=K)
+    s_ref, b_ref = jax_chain_dp_batch({k: jnp.asarray(v) for k, v in arrs.items()}, WIGGLE_ROOM)
+    s, b = chain_dp(*pack_batch(arrs), K, WIGGLE_ROOM)
+    assert s.dtype == torch.float64 and b.dtype == torch.int32
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(b_ref))
+
+
+def test_boundary_batch_hits_the_edges():
+    """Consecutive anchors of the boundary kind meet diff == wiggle_room,
+    rel == 15.0 exactly and mx == 0, each compatible or not as the rules say,
+    and the shared score makes ties that go to the smallest index."""
+    arrs = chain_batch(64, 8, "boundary", seed=1)
+    d1 = arrs["v_ns"][:, 1:] - arrs["v_ne"][:, :-1] + 1.0
+    d2 = arrs["w_ns"][:, 1:] - arrs["w_ne"][:, :-1] + 1.0
+    mx, diff = np.maximum(d1, d2), np.abs(d1 - d2)
+    both = arrs["valid"][:, 1:] & arrs["valid"][:, :-1] & arrs["cls_dir"][:, None]
+    compat, _ = compat_init_batch(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
+    step = compat.numpy()[:, np.arange(1, 8), np.arange(7)]  # [b, l, l - 1]
+    at_wiggle = both & (d1 > 0) & (diff == WIGGLE_ROOM)
+    at_rel = both & (d1 > 0) & (diff > WIGGLE_ROOM) & (diff * 100.0 / mx == 15.0)
+    past = both & (d1 > 0) & ((diff == WIGGLE_ROOM + 1) | (diff == 601))
+    assert at_wiggle.any() and at_rel.any() and past.any()
+    assert step[at_wiggle].all() and step[at_rel].all() and not step[past].any()
+    assert (both & (arrs["v_ns"][:, 1:] == arrs["v_ns"][:, :-1])).any()  # mx == 0
+    scores, bps = (x.numpy() for x in chain_dp(*pack_batch(arrs), 8, WIGGLE_ROOM))
+    c = compat.numpy() & (np.arange(8)[None, None, :] < np.arange(8)[None, :, None])
+    cand = np.where(c, scores[:, None, :], -np.inf)  # [b, l, k], k < l
+    best = cand.max(axis=2)
+    tied = (cand == best[..., None]) & c
+    ties = tied.sum(axis=2) > 1
+    assert ties.any()
+    np.testing.assert_array_equal(bps[ties], np.argmax(tied, axis=2)[ties])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_packed_batch_matches_per_field(kind):
+    """One packed batch gives the per-field dict's results, holds only the
+    valid anchors, and unpacks to the same fields at every valid anchor."""
+    arrs = chain_batch(33, 16, kind, seed=5)
+    fields, flags, offsets = pack_batch(arrs)
+    valid = arrs["valid"]
+    N = int(valid.sum())
+    assert fields.is_contiguous() and fields.shape == (13, N)
+    assert flags.dtype == torch.uint8 and flags.shape == (N,)
+    assert offsets.dtype == torch.int32 and offsets.tolist() == [0, *np.cumsum(valid.sum(1))]
+    got = unpack_batch(fields, flags, offsets, 16)
+    np.testing.assert_array_equal(got["valid"].numpy(), valid)
+    for name in ("v_ns", "v_ne", "v_is", "v_ie", "v_rr", "w_ns", "w_ne", "w_is", "w_ie",
+                 "w_rr", "ov_s", "ov_e", "score", "v_dir", "w_dir"):
+        np.testing.assert_array_equal(got[name].numpy()[valid], arrs[name][valid], err_msg=name)
+    rows = valid.any(axis=1)
+    np.testing.assert_array_equal(got["cls_dir"].numpy()[rows], arrs["cls_dir"][rows])
+    s, b = chain_dp(fields, flags, offsets, 16, WIGGLE_ROOM)
+    s1, b1 = chain_dp_batch_kernel(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
+    s2, b2 = chain_scan_reference(*compat_init_batch(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM))
+    assert torch.equal(s, s1) and torch.equal(b, b1)
+    assert torch.equal(s, s2) and torch.equal(b, b2)
+
+
+def test_pack_batch_needs_valid_anchors_first():
+    arrs = chain_batch(4, 8, "random", seed=4)
+    arrs["valid"] = arrs["valid"].copy()
+    arrs["valid"][0] = [False, True] + [False] * 6
+    with pytest.raises(ValueError):
+        pack_batch(arrs)
+
+
+@pytest.mark.parametrize("K", (8, 32))
+def test_bucket_batch_is_the_packed_per_field_batch(K):
+    """The chaining phase's packed bucket equals the per-field batch that
+    phase built before (zeroed numpy tables, rRatio 1.0 in padding, anchors
+    scattered to their slots) packed by pack_batch."""
+    rng = np.random.default_rng(K)
+    nb, n_rows = 21, 1000
+    B = 32
+    sizes = rng.integers(1, K + 1, nb)
+    total = int(sizes.sum())
+    prob_of_row = np.repeat(np.arange(nb), sizes)
+    row_pos = np.arange(total) - np.repeat(np.cumsum(sizes) - sizes, sizes)
+    src = rng.permutation(n_rows)[:total]
+    dest = prob_of_row * K + row_pos
+    f = {g: rng.integers(0, 5000, n_rows).astype(np.float64) for g in _FIELD_MAP.values()}
+    f.update(v_dir=rng.random(n_rows) < 0.5, w_dir=rng.random(n_rows) < 0.5)
+    cls_dir = rng.random(nb) < 0.5
+
+    arrs = {}
+    for bf, gf in _FIELD_MAP.items():
+        a = np.zeros(B * K, dtype=np.float64)
+        if bf in ("v_rr", "w_rr"):
+            a[:] = 1.0
+        a[dest] = f[gf][src]
+        arrs[bf] = a.reshape(B, K)
+    for bf in ("v_dir", "w_dir"):
+        a = np.zeros(B * K, dtype=bool)
+        a[dest] = f[bf][src]
+        arrs[bf] = a.reshape(B, K)
+    valid = np.zeros(B * K, dtype=bool)
+    valid[dest] = True
+    arrs["valid"] = valid.reshape(B, K)
+    arrs["cls_dir"] = np.zeros(B, dtype=bool)
+    arrs["cls_dir"][:nb] = cls_dir
+
+    packed = bucket_batch(f, src, sizes, cls_dir, B, pin=False)
+    for got, want in zip(packed, pack_batch(arrs)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    s, b = chain_dp(*packed, K, WIGGLE_ROOM)
+    s1, b1 = chain_dp_batch_kernel(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
+    assert torch.equal(s, s1) and torch.equal(b, b1)
+
+
+def test_chain_dp_rejects_bad_inputs():
+    fields, flags, offsets = pack_batch(chain_batch(4, 8, "random", seed=2))
+    with pytest.raises(TypeError):
+        chain_dp(fields.float(), flags, offsets, 8, WIGGLE_ROOM)
+    with pytest.raises(TypeError):
+        chain_dp(fields, flags.bool(), offsets, 8, WIGGLE_ROOM)
+    with pytest.raises(TypeError):
+        chain_dp(fields, flags, offsets.long(), 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(fields[:12], flags, offsets, 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(fields, flags[:-1], offsets, 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(fields.t().contiguous().t(), flags, offsets, 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(fields, flags, offsets, 129, WIGGLE_ROOM)
+    with pytest.raises(ValueError):  # a problem of more than K anchors
+        chain_dp(fields, flags, offsets, 2, WIGGLE_ROOM)
+    # neither cpu nor cuda: no silent fallback to the plain version
+    with pytest.raises(ValueError):
+        chain_dp(fields.to("meta"), flags.to("meta"), offsets.to("meta"), 8, WIGGLE_ROOM)
+
+
+def test_chain_dp_reference_is_the_wrapper_on_cpu():
+    fields, flags, offsets = pack_batch(chain_batch(7, 32, "random", seed=3))
+    before = chain_dp.launches
+    s0, b0 = chain_dp_reference(fields, flags, offsets, 32, WIGGLE_ROOM)
+    s1, b1 = chain_dp(fields, flags, offsets, 32, WIGGLE_ROOM)
+    assert torch.equal(s0, s1) and torch.equal(b0, b1)
+    assert chain_dp.launches == before  # the plain version is no launch

@@ -18,9 +18,13 @@ import torch
 
 from muchsalsa_tpu_torch.ops.align_torch import (
     banded_edit_distance, banded_edit_distance_reference, pack_problems)
-from muchsalsa_tpu_torch.ops.chain_scan import NEG, chain_scan, chain_scan_reference
+from muchsalsa_tpu_torch.ops.chain_scan import (
+    NEG, chain_dp, chain_dp_reference, chain_scan, chain_scan_reference)
 from muchsalsa_tpu_torch.ops.myers_torch import (
     myers_banded, myers_banded_reference, myers_edit_distance, myers_edit_distance_reference)
+from muchsalsa_tpu_torch.state import pack_batch
+from muchsalsa_tpu_torch.testing.chains import KINDS as CHAIN_KINDS
+from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch
 from muchsalsa_tpu_torch.testing.pairs import random_pairs
 
 pytestmark = pytest.mark.cuda
@@ -77,6 +81,32 @@ def test_chain_scan_kernel_rejects_mixed_devices(cuda):
         chain_scan(torch.from_numpy(compat).to(cuda), torch.from_numpy(init))
 
 
+@pytest.mark.parametrize("kind", CHAIN_KINDS)
+@pytest.mark.parametrize("B,K", [(B, K) for K in BUCKETS for B in (1, 33, 4096)] + [(65536, 32)])
+def test_chain_dp_kernel_matches_reference(cuda, B, K, kind):
+    packed = [x.to(cuda) for x in pack_batch(chain_batch(B, K, kind, seed=B + K))]
+    before = chain_dp.launches
+    s, b = chain_dp(*packed, K, WIGGLE_ROOM)
+    torch.cuda.synchronize()
+    assert chain_dp.launches == before + 1
+    s_ref, b_ref = chain_dp_reference(*packed, K, WIGGLE_ROOM)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(b, b_ref)
+
+
+def test_chain_dp_kernel_rejects_bad_inputs(cuda):
+    fields, flags, offsets = pack_batch(chain_batch(4, 8, "random", seed=0))
+    f, g, o = fields.to(cuda), flags.to(cuda), offsets.to(cuda)
+    with pytest.raises(ValueError):
+        chain_dp(f, flags, o, 8, WIGGLE_ROOM)
+    with pytest.raises(TypeError):
+        chain_dp(f.float(), g, o, 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(f[:, :4].contiguous(), g, o, 8, WIGGLE_ROOM)
+    with pytest.raises(ValueError):
+        chain_dp(f, g, o, 129, WIGGLE_ROOM)
+
+
 def test_port_edges_on_card_match_host(cuda, tmp_path):
     from muchsalsa_tpu_torch.io.paf import read_paf
     from muchsalsa_tpu_torch.matching.edges import build_edges
@@ -112,10 +142,10 @@ def test_port_golden_on_card(cuda, tmp_path):
     paths = write_simulation(sim, tmp_path / "data")
     cfg = Config()
     cfg = dataclasses.replace(cfg, device=dataclasses.replace(cfg.device, min_device_batch=1))
-    before = chain_scan.launches
+    before = chain_dp.launches
     assemble(paths["paf"], paths["unitigs"], paths["reads"], tmp_path / "out", cfg,
              device=cuda)
-    assert chain_scan.launches > before
+    assert chain_dp.launches > before
     got = {n: hashlib.sha256((tmp_path / "out" / n).read_bytes()).hexdigest() for n in GOLDEN}
     assert got == GOLDEN
 
@@ -158,6 +188,26 @@ def test_myers_full_kernel_max_n(cuda):
 def test_myers_banded_kernel_matches_reference(cuda, P, M, window_words):
     check_kernel(myers_banded, myers_banded_reference, align_inputs(P, M, P + M + 1, cuda),
                  window_words=window_words)
+
+
+@pytest.mark.parametrize("window_words", range(1, 9))
+def test_myers_banded_kernel_every_window(cuda, window_words):
+    """Each instantiation of the banded kernel against the plain version,
+    on pairs long enough for the window to advance."""
+    check_kernel(myers_banded, myers_banded_reference, align_inputs(200, 400, window_words, cuda),
+                 window_words=window_words)
+
+
+def test_myers_banded_kernel_rejects_bad_inputs(cuda):
+    q, ql, t, tl = align_inputs(8, 40, 0, cuda)
+    with pytest.raises(ValueError):
+        myers_banded(q, ql.cpu(), t, tl)
+    with pytest.raises(TypeError):
+        myers_banded(q.long(), ql, t, tl)
+    with pytest.raises(ValueError):
+        myers_banded(q, ql, t[:4], tl)
+    with pytest.raises(ValueError):
+        myers_banded(q, ql, t, tl, window_words=0)
 
 
 @pytest.mark.parametrize("band", (128, 256))
