@@ -19,7 +19,10 @@ exits non-zero without its last line:
              and all-false compat with -1e30 holes; then the fused chain_dp
              against chain_dp_reference at the same shapes on random
              anchors, boundary anchors (diff == wiggle_room, rel == 15.0,
-             mx == 0, ties) and all-padding rows; bit-equal required;
+             mx == 0, ties), all-padding rows and inverted anchors (a
+             corrected range with hi < lo, where the pair order (k, l)
+             matters), and the two-anchor input that only the order (k, l)
+             leaves unchained (scores 500 and 700); bit-equal required;
              median CUDA-event times of both;
 3. golden  — the port's assemble(device="cuda", min_device_batch=1) on the
              dataset of tests/test_golden.py must reproduce its sha256s,
@@ -57,12 +60,18 @@ exits non-zero without its last line:
              full batch of the largest bucket; peak CUDA memory;
 9. full    — phase 4's genome as raw reads (Illumina pairs at 25x, phase 7's
              noisy long reads) through the port's run_full_pipeline with
-             mapper.refine on: mapping on the card, then mapping on the host
-             as the oracle (refinement and the core on the card in both); the
-             three PAFs and 03.assembly.unpolished.fa byte-identical, at least
-             one contig, chain_dp and myers_full launched on the
-             device-mapping run, no jax loaded; stage walls, the device-map
-             report lines, both walls and peak CUDA memory.
+             mapper.refine on: every device leg on the card (mapping, the
+             k-mer filter's counting, the DBG extension table, the scrub's
+             all-vs-all), then all four on the host as the oracle
+             (refinement and the core on the card in both); the filtered
+             reads, unitigs, scrubbed reads, three PAFs and
+             03.assembly.unpolished.fa byte-identical, at least one contig,
+             chain_dp and myers_full launched on the device run, k-mer
+             chunks and DBG extension rows counted on the card, at least one
+             scrub subset on the card and none declined by its guard, no jax
+             loaded; stage walls (the three legs' side by side), each scrub
+             subset's multiplicity and index chunks, the report's device
+             lines, both walls and peak CUDA memory.
 
 Then the kernel summary line (each kernel's launches on its path, error,
 kernel and plain times, bound and what bounds it, and the library yardstick:
@@ -140,8 +149,13 @@ def assert_no_reference(what: str) -> None:
         raise AssertionError(f"{what} loaded {loaded[:8]}")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of a phase; ``t_s`` is the seconds since the script
+    started, so that each phase's share of the run can be read."""
+    print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -575,15 +589,28 @@ def write_fasta(path: Path, records) -> None:
             fh.write(b">" + name.encode() + b"\n" + seq + b"\n")
 
 
+FULL_LEGS = ("device_map", "device_kmer", "device_dbg", "device_scrub")
+FULL_FILES = ("01_illu_filtered.fa", "01_unitigs.fa", "01_unitigs.paf",
+              "01_contigs_corrected.paf", "02_scrubbed.fa",
+              "02_contigs_corrected.scrubbed.paf", "03.assembly.unpolished.fa")
+
+
 def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
-    """Phase 9: raw reads -> assembly through the port's run_full_pipeline,
-    mapping on the card, against the same pipeline mapping on the host;
-    refinement and the core on the card in both.  Returns the chain_dp
-    and myers_full launches of the device-mapping run."""
+    """Phase 9: raw reads -> assembly through the port's run_full_pipeline
+    with every device leg on the card (mapping, k-mer counting, the DBG
+    extension table, the scrub's all-vs-all), against the same pipeline
+    with all four on the host; refinement and the core on the card in both.
+    Each leg must have run on the card and the scrub's guard must have
+    declined no subset.  Returns the chain_dp and myers_full launches of
+    the device run."""
     from muchsalsa_tpu_torch.config import Config
+    from muchsalsa_tpu_torch.device import resolve_device
     from muchsalsa_tpu_torch.ops.chain_scan import chain_dp
+    from muchsalsa_tpu_torch.ops.dbg_torch import DBG_DEVICE_STATS
+    from muchsalsa_tpu_torch.ops.kmer_torch import KMER_DEVICE_STATS
     from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
     from muchsalsa_tpu_torch.pipeline.full import run_full_pipeline
+    from muchsalsa_tpu_torch.pipeline.scrubber import SCRUB_DEVICE_STATS
     from muchsalsa_tpu_torch.testing.simulate import illumina_pairs
 
     t0 = time.perf_counter()
@@ -600,13 +627,16 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
     cfg = dataclasses.replace(cfg, mapper=dataclasses.replace(cfg.mapper, refine=True))
 
     runs = {}
-    for name, device_map in (("device_map", True), ("host_map", False)):
+    for name, on in (("device", True), ("host", False)):
         out = work / f"full_{name}"
         torch.cuda.reset_peak_memory_stats()
+        for stats in (KMER_DEVICE_STATS, DBG_DEVICE_STATS, SCRUB_DEVICE_STATS):
+            stats.clear()
         chain_dp.launches = 0
         myers_edit_distance.launches = 0
         t0 = time.perf_counter()
-        run_full_pipeline(illu1, illu2, nano, out, cfg, device=device, device_map=device_map)
+        run_full_pipeline(illu1, illu2, nano, out, cfg, device=device,
+                          **{leg: on for leg in FULL_LEGS})
         wall = time.perf_counter() - t0
         assert_no_reference("the port's full pipeline")
         manifest = json.loads((out / "manifest.json").read_text())
@@ -617,27 +647,43 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
             "stages_s": {k: v["elapsed_s"] for k, v in manifest.items()},
             "report": [ln for ln in (out / "report.txt").read_text().splitlines()
                        if ln.startswith("device ")],
+            "legs": {"kmer": dict(KMER_DEVICE_STATS), "dbg": dict(DBG_DEVICE_STATS),
+                     "scrub": dict(SCRUB_DEVICE_STATS)},
         }
-    dev, host = runs["device_map"], runs["host_map"]
-    names = ("01_unitigs.paf", "01_contigs_corrected.paf", "02_contigs_corrected.scrubbed.paf",
-             "03.assembly.unpolished.fa")
+    dev, host = runs["device"], runs["host"]
     identical = {n: (dev["out"] / n).read_bytes() == (host["out"] / n).read_bytes()
-                 for n in names}
-    final = (dev["out"] / names[-1]).read_bytes()
+                 for n in FULL_FILES}
+    final = (dev["out"] / FULL_FILES[-1]).read_bytes()
     contigs = final.count(b">")
+    legs = dev["legs"]
     emit("full", card=card, genome_mb=len(sim.genome) / 1e6, illumina_pairs=len(pairs),
          nanopore_reads=len(reads), data_s=data_s, contigs=contigs,
          assembly_bases=len(final) - final.count(b"\n") - sum(
              len(ln) for ln in final.split(b"\n") if ln.startswith(b">")),
          identical=identical,
+         # the device legs' stage walls beside the host's: [device run, host run]
+         leg_walls_s={st: [dev["stages_s"][st], host["stages_s"][st]]
+                      for st in ("kmer_filter", "unitigs", "scrub")},
+         scrub_subsets=legs["scrub"].get("subsets"),
          **{f"{k}_{f}": v[f] for k, v in runs.items()
-            for f in ("wall_s", "cuda_peak_bytes", "launches", "stages_s", "report")})
+            for f in ("wall_s", "cuda_peak_bytes", "launches", "stages_s", "report", "legs")})
     if not all(identical.values()):
-        raise AssertionError(f"full with device mapping differs from host mapping: {identical}")
+        raise AssertionError(f"full with the device legs differs from the host run: {identical}")
     if contigs < 1:
         raise AssertionError("the full pipeline assembled no contig")
     if min(dev["launches"].values()) == 0:
         raise AssertionError(f"the full pipeline's kernels did not launch: {dev['launches']}")
+    on_card = str(resolve_device(device))
+    if not (legs["kmer"].get("device") == on_card and legs["kmer"]["chunks"] > 0):
+        raise AssertionError(f"the k-mer leg counted no chunk on {on_card}: {legs['kmer']}")
+    if not (legs["dbg"].get("device") == on_card and legs["dbg"]["rows"] > 0):
+        raise AssertionError(f"the DBG leg built no extension row on {on_card}: {legs['dbg']}")
+    scrub = legs["scrub"]
+    if not (scrub.get("device") == on_card and scrub["on_device"] >= 1
+            and scrub["declined"] == 0):
+        raise AssertionError(f"the scrub's all-vs-all did not run on {on_card}: {scrub}")
+    if any(runs["host"]["legs"].values()):
+        raise AssertionError(f"the host run reached a device leg: {runs['host']['legs']}")
     return dev["launches"]["chain_dp"], dev["launches"]["myers_full"]
 
 
@@ -668,7 +714,7 @@ def main() -> int:
     from muchsalsa_tpu_torch.ops.chain_scan import chain_dp, chain_scan, compat_init_batch
     from muchsalsa_tpu_torch.state import pack_batch, unpack_batch
     from muchsalsa_tpu_torch.testing.chains import KINDS as CHAIN_KINDS
-    from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch
+    from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch, inverted_pair_batch
 
     # --- 1. build
     t0 = time.perf_counter()
@@ -702,6 +748,14 @@ def main() -> int:
             row = compare_dp(packed, K, WIGGLE_ROOM, kind, timed=kind == "random")
             max_err["chain_dp"] = max(max_err["chain_dp"], row["max_abs_err"])
             emit("kernels", card=card, **row)
+    # the pair order: two anchors that only (anchor k, anchor l) leaves unchained
+    packed = [x.cuda() for x in pack_batch(inverted_pair_batch())]
+    row = compare_dp(packed, 8, WIGGLE_ROOM, "inverted_pair", timed=False)
+    s, b = chain_dp(*packed, 8, WIGGLE_ROOM)
+    if s[0, :2].tolist() != [500.0, 700.0] or b[0, :2].tolist() != [-1, -1]:
+        raise AssertionError(f"chain_dp chained the inverted pair: {s[0, :2].tolist()}, "
+                             f"{b[0, :2].tolist()}")
+    emit("kernels", card=card, **row)
     del packed  # the last batch would count in phase 4's peak memory
 
     from muchsalsa_tpu_torch.testing.simulate import simulate, write_simulation

@@ -15,14 +15,18 @@
 //     if best > -1e30: score[l] = init[l] + best, bp[l] = smallest k attaining best
 //     else:            score[l] unchanged,        bp[l] = -1
 //
-// ms_chain_dp computes compat[b, l, k] (k < l) itself from the packed batch
-// of state.py: the N valid anchors only, problem by problem, as 13 float64
+// ms_chain_dp builds row l's mask itself from the packed batch of state.py,
+// admitting k < l where compat_init_batch's entry [b, k, l] holds: the pair
+// (anchor k, anchor l), the order of the JAX package's chain_dp_batch
+// (compat[:, l]) and of the host oracle's check_compatibility(k, l).  The
+// two orders differ where a corrected range inverts.  Its input is the N
+// valid anchors only, problem by problem, as 13 float64
 // planes of N (v_ns, v_ne, v_is, v_ie, v_rr, w_ns, w_ne, w_is, w_ie, w_rr,
 // ov_s, ov_e, score), a flag byte an anchor (bit 0 v_dir, 1 w_dir, 2 its
 // problem's cls_dir) and B + 1 int32 offsets (problem b's anchors are
 // offsets[b] .. offsets[b + 1], at most K); it writes the (B, K) scores and
 // backpointers of the padded batch, -1e30 and -1 past each problem's
-// anchors.  Pair (a, b) = (anchor l, anchor k) follows compat_init_batch's
+// anchors.  Pair (a, b) = (anchor k, anchor l) follows compat_init_batch's
 // expressions in the same order: the corrected ranges (ov_s - is) / rr, the
 // orientation codes and gap diffs b_hi - a_lo + 1.0 (and the like), the
 // vertex aborts, diff * 100.0 / mx (never <= 15 where mx == 0),
@@ -366,7 +370,7 @@ chain_dp_segment_kernel(const double* __restrict__ fields, const uint8_t* __rest
   for (int r = p.lane; r < total; r += 32) {
     const unsigned pair = sh_pairs[w][r];
     const int sl = static_cast<int>(pair >> 8), sk = static_cast<int>(pair & 0xFFu);
-    if (compatible(get_anchor(sh[w], sl), get_anchor(sh[w], sk), (cls_bits >> sl) & 1u, wiggle))
+    if (compatible(get_anchor(sh[w], sk), get_anchor(sh[w], sl), (cls_bits >> sl) & 1u, wiggle))
       atomicOr(&sh_mask[w][sl], 1u << (sk % G));
   }
   __syncwarp();
@@ -454,7 +458,7 @@ chain_dp_kernel(const double* __restrict__ fields, const uint8_t* __restrict__ f
             const int s = seg0 + k;
             const Anchor o = {nb[0][s], nb[1][s], nb[2][s], nb[3][s],
                               nb[4][s], nb[5][s], nb[6][s], nb[7][s]};
-            bits |= static_cast<uint32_t>(compatible(me[c], o, cls, wiggle)) << t;
+            bits |= static_cast<uint32_t>(compatible(o, me[c], cls, wiggle)) << t;
           }
         }
       }

@@ -14,7 +14,11 @@ Both kernels are in ``csrc/chain_scan.cu``:
   returns the (B, K) scores and backpointers of the padded batch, padding
   anchors at ``NEG`` and -1.  Its plain version is ``chain_dp_reference``,
   ``compat_init_batch`` followed by ``chain_scan_reference`` on the
-  unpacked batch.
+  unpacked batch's transposed matrix: step l admits k where
+  ``compat_init_batch`` gives ``[b, k, l]``, the pair (anchor k, anchor l)
+  that the JAX package's ``chain_dp_batch`` (``compat[:, l]``) and the host
+  oracle's ``check_compatibility(k, l)`` test.  The matrix is not symmetric
+  where a corrected range inverts.
 
 Each wrapper takes its plain version only for tensors on the CPU; for a
 CUDA tensor it launches its kernel or raises.
@@ -234,10 +238,11 @@ def chain_dp_reference(
     fields: Tensor, flags: Tensor, offsets: Tensor, K: int, wiggle_room: int
 ) -> tuple[Tensor, Tensor]:
     """Plain PyTorch chaining DP of a packed batch: ``compat_init_batch``
-    followed by ``chain_scan_reference`` on the unpacked (B, K) batch.
-    Returns (scores (B, K) float64, bps (B, K) int32)."""
-    batch = unpack_batch(fields, flags, offsets, K)
-    return chain_scan_reference(*compat_init_batch(batch, wiggle_room))
+    on the unpacked (B, K) batch, then ``chain_scan_reference`` over its
+    transpose, so that step l admits k where the pair (anchor k, anchor l)
+    is compatible.  Returns (scores (B, K) float64, bps (B, K) int32)."""
+    compat, init = compat_init_batch(unpack_batch(fields, flags, offsets, K), wiggle_room)
+    return chain_scan_reference(compat.transpose(1, 2), init)
 
 
 def chain_dp(

@@ -5,7 +5,8 @@
     python -m muchsalsa_tpu_torch.pipeline.cli map <query_fa> <target_fa> <out_paf>
         [--no-device-map] --device {cuda,cpu}
     python -m muchsalsa_tpu_torch.pipeline.cli full --illumina1 A [--illumina2 B]
-        --nanopore N --out DIR [--no-device-map] --device {cuda,cpu}
+        --nanopore N --out DIR [--no-device-map] [--[no-]device-{kmer,dbg,scrub}]
+        --device {cuda,cpu}
     python -m muchsalsa_tpu_torch.pipeline.cli config
 
 ``core`` is the reference muchsalsa binary's positional CLI
@@ -13,7 +14,9 @@
 package's arguments (``muchsalsa_tpu/pipeline/cli.py:62-93``), with the
 torch device named.  The default device is ``cuda``, and a machine without
 a card raises instead of running on the CPU: CPU runs say ``--device cpu``.
-``map`` and ``full`` map on the device unless ``--no-device-map``.
+``map`` and ``full`` map on the device unless ``--no-device-map``; ``full``
+runs the k-mer, DBG and scrub device legs on a card unless ``--no-device-*``
+says otherwise (on the CPU they are off unless ``--device-*`` asks).
 """
 
 from __future__ import annotations
@@ -69,9 +72,12 @@ def main(argv: list[str] | None = None) -> int:
     full.add_argument("--device-map", action=argparse.BooleanOptionalAction, default=True,
                       help="map on --device (default; identical output, overflowing "
                       "reads on the host); --no-device-map maps on the host")
-    for leg in ("kmer", "scrub", "dbg"):
+    for leg, stage in (("kmer", "the k-mer filter's counting"),
+                       ("scrub", "the scrub's all-vs-all mapping"),
+                       ("dbg", "the unitig build's extension table")):
         full.add_argument(f"--device-{leg}", action=argparse.BooleanOptionalAction,
-                          default=False, help="not ported yet: raises when set")
+                          default=None, help=f"run {stage} on --device (default: on for "
+                          f"cuda, off for cpu); --no-device-{leg} runs it on the host")
     _device_arg(full, "device mapping, refinement, edges and chaining")
 
     mp = sub.add_parser("map", help="native minimizer mapper (PAF out)")

@@ -2,23 +2,25 @@
 
 Port of ``muchsalsa_tpu/pipeline/full.py::run_full_pipeline`` (:103-325):
 
-  ① k-mer filter of the Illumina reads     host (``pipeline/kmer.py``)
-  ② unitigs                                host (``pipeline/dbg.py``)
+  ① k-mer filter of the Illumina reads     ``ops/kmer_torch.py`` counts, or host
+  ② unitigs                                ``ops/dbg_torch.py`` extensions, or host
   ③ map unitigs onto the long reads        the port's ``map_all``
   ④ unitig coverage filter                 host (``pipeline/unitig_filter.py``)
   ⑤ map the corrected unitigs              the port's ``map_all``
-  ⑥ scrub the long reads                   host (``pipeline/scrubber.py``)
+  ⑥ scrub the long reads                   ``pipeline/scrubber.py``, all-vs-all
+                                           on the device mapper, or host
   ⑦ map onto the scrubbed reads            the port's ``map_all``
   ⑧ core assembly                          the port's ``assemble``
   ⑨ copy the target contigs to ``03.assembly.unpolished.fa``
 
 Stages ③⑤⑦ map on ``device`` when ``device_map`` is set (else on the host)
-and refine on ``device`` when ``config.mapper.refine`` is set; stage ⑧ runs
-edges and chaining on ``device``.  Every other stage is host code, the
-port's own copy of the JAX package's modules.  The device legs of stages
-①②⑥ are not ported, so their flags raise.  Stages checkpoint through
-``StageRunner`` manifests (a rerun skips what is up to date; the manifest
-keys do not hold the placement, as in the JAX package).
+and refine on ``device`` when ``config.mapper.refine`` is set; stages ①②⑥
+run their device legs on ``device`` when ``device_kmer``, ``device_dbg``
+and ``device_scrub`` are set; stage ⑧ runs edges and chaining on
+``device``.  The rest is host code, the port's own copy of the JAX
+package's modules.  Stages checkpoint through ``StageRunner`` manifests (a
+rerun skips what is up to date; the manifest keys do not hold the
+placement, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -60,38 +62,40 @@ def run_full_pipeline(
     unitig_k: int = 31,
     device: str | torch.device = "cuda",
     device_map: bool = True,
-    device_kmer: bool = False,
-    device_scrub: bool = False,
-    device_dbg: bool = False,
+    device_kmer: bool | None = None,
+    device_scrub: bool | None = None,
+    device_dbg: bool | None = None,
 ) -> Path:
     """Run the pipeline into ``outdir``; returns the final assembly's path.
 
     ``device`` (default ``cuda``, which raises without a card) is where the
-    map stages' device mapping and refinement and the core's edges and
-    chaining run; ``device_map=False`` maps on the host instead.
-    ``device_kmer``, ``device_dbg`` and ``device_scrub`` raise
-    ``NotImplementedError``: those device legs are not ported yet.
+    map stages' device mapping and refinement, the device legs of stages
+    ①②⑥ and the core's edges and chaining run; ``device_map=False`` maps
+    on the host instead.  ``device_kmer``, ``device_dbg`` and
+    ``device_scrub`` put their legs on ``device`` when True and on the host
+    when False; None (the default) means on where ``device`` is a card and
+    off on the CPU, as the JAX package's ``auto`` with an accelerator
+    attached, but only where the leg's k fits its 64-bit packing (k <= 31).
+    ``report.txt`` states each leg's placement.
     """
-    for flag, on in (("device_kmer", device_kmer), ("device_dbg", device_dbg),
-                     ("device_scrub", device_scrub)):
-        if on:
-            raise NotImplementedError(
-                f"{flag}: the k-mer, DBG and scrub device legs are not ported to "
-                "muchsalsa_tpu_torch yet (ROADMAP.md §1 item 10); run them on the host")
     dev = resolve_device(device)
+    k_filter = kmer_filter_k or config.pipeline.kmer_k_filter
+    on_card = dev.type == "cuda"
+    device_kmer = (on_card and k_filter <= 31) if device_kmer is None else device_kmer
+    device_dbg = (on_card and unitig_k <= 31) if device_dbg is None else device_dbg
+    device_scrub = on_card if device_scrub is None else device_scrub
 
     out = Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
     runner = StageRunner(out)
     report = out / "report.txt"
     with open(report, "a") as fh:
-        fh.write(f"device placement: map={device_map} kmer=False scrub=False dbg=False "
-                 f"(torch device {dev})\n")
+        fh.write(f"device placement: map={device_map} kmer={device_kmer} "
+                 f"scrub={device_scrub} dbg={device_dbg} (torch device {dev})\n")
 
     illumina1 = Path(illumina1)
     illumina2 = Path(illumina2) if illumina2 else None
     nanopore = Path(nanopore)
-    k_filter = kmer_filter_k or config.pipeline.kmer_k_filter
 
     filtered_fa = out / "01_illu_filtered.fa"
     unitigs_fa = out / "01_unitigs.fa"
@@ -110,7 +114,17 @@ def run_full_pipeline(
             histogram)
 
         pairs = _read_pairs(illumina1, illumina2)
-        uniq, counts = count_kmers([s for p in pairs for s in p if s], k_filter)
+        seqs = [s for p in pairs for s in p if s]
+        if device_kmer:
+            from muchsalsa_tpu_torch.ops.kmer_torch import KMER_DEVICE_STATS, count_kmers_device
+
+            uniq, counts = count_kmers_device(seqs, k_filter, device=dev)
+            with open(report, "a") as fh:
+                fh.write(f"device kmer: {KMER_DEVICE_STATS['chunks']} chunks, "
+                         f"{KMER_DEVICE_STATS['rows']} rows, {KMER_DEVICE_STATS['kmers']} "
+                         f"k-mers on {KMER_DEVICE_STATS['device']}\n")
+        else:
+            uniq, counts = count_kmers(seqs, k_filter)
         th = abundance_threshold(histogram(counts))
         bad = high_abundance_kmers(uniq, counts, max(th, 2))
         kept = filter_read_pairs(pairs, bad, k_filter)
@@ -134,7 +148,14 @@ def run_full_pipeline(
         store = SequenceStore.from_file(filtered_fa)
         unitigs = build_unitigs(
             [store.sequence(i) for i in store.ids()], k=unitig_k, min_count=2,
-            min_length=config.pipeline.min_unitig_length, device=False)
+            min_length=config.pipeline.min_unitig_length,
+            device=dev if device_dbg else False)
+        if device_dbg:
+            from muchsalsa_tpu_torch.ops.dbg_torch import DBG_DEVICE_STATS
+
+            with open(report, "a") as fh:
+                fh.write(f"device dbg: {DBG_DEVICE_STATS['rows']} k-mers' extensions in "
+                         f"{DBG_DEVICE_STATS['chunks']} chunks on {DBG_DEVICE_STATS['device']}\n")
         write_fasta(unitigs_fa, ((f"unitig_{i}", u) for i, u in enumerate(unitigs)))
 
     runner.run("unitigs", [filtered_fa], [unitigs_fa], stage_unitigs, {"k": unitig_k})
@@ -210,8 +231,20 @@ def run_full_pipeline(
 
         reads = SequenceStore.from_file(nanopore)
         lines = [ln for ln in paf2.read_text().splitlines() if ln and "__sentinel__" not in ln]
-        write_fasta(scrubbed_fa, scrub_reads(lines, reads, config.scrub, config.mapper,
-                                             device=False))
+        scrubbed = scrub_reads(lines, reads, config.scrub, config.mapper,
+                               device=dev if device_scrub else False)
+        if device_scrub:
+            from muchsalsa_tpu_torch.pipeline.scrubber import SCRUB_DEVICE_STATS as st
+
+            with open(report, "a") as fh:
+                mapped = [x for x in st["subsets"] if not x["declined"]]
+                fh.write(f"device scrub: {st['on_device']} subsets on {st['device']}, "
+                         f"{st['declined']} declined to the host; (multiplicity, chunks): "
+                         f"{[(round(x['multiplicity'], 3), x['chunks']) for x in st['subsets']]}; "
+                         f"reads {sum(x['total_reads'] for x in mapped)}, "
+                         f"{sum(x['overflow_reads'] for x in mapped)} overflow->host, "
+                         f"{sum(x['tier2_reads'] for x in mapped)} through tier 2\n")
+        write_fasta(scrubbed_fa, scrubbed)
 
     runner.run("scrub", [paf2, nanopore], [scrubbed_fa], stage_scrub)
 

@@ -9,8 +9,9 @@ buckets and their budgets, ``write_paf``) is the port's copy in
 
 Device mapping runs the six v2 stages of ``ops.mapping_torch`` per batch of
 one length bucket and pulls each batch's hits in the dense layout.  Reads
-that break a static budget take a second, wider tier on the device or fall
-back to the host ``map_read``; either way the result equals ``map_read``'s.
+that break a static budget take a second, wider tier on the device or go
+to the host mapper (one ``map_batch`` call at the end); either way the
+result equals ``map_read``'s.
 Refinement packs every mapped region into one batch
 (``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
 and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
@@ -123,8 +124,7 @@ def map_all_with_device(
         tier2_reads=0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
-        for rid, seq in items:
-            results[rid] = map_read(index, seq, cfg)
+        _map_on_host(index, items, cfg, results)
         DEVICE_MAP_STATS["overflow_reads"] = len(items)
     else:
         _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
@@ -134,9 +134,29 @@ def map_all_with_device(
     return [(rid, results[rid]) for rid, _ in items]
 
 
+def _map_on_host(index, items, cfg, results) -> None:
+    """Map ``items`` ((read id, sequence) pairs) with the host mapper into
+    ``results``: one multithreaded ``map_batch`` call where the native
+    library serves it (identical to per-read ``map_read``), else
+    ``map_read`` a read."""
+    if not items:
+        return
+    store = SequenceStore()
+    for rid, seq in items:
+        store.add(str(rid), seq)
+    per = map_batch(index, store, cfg)
+    if per is None:
+        for rid, seq in items:
+            results[rid] = map_read(index, seq, cfg)
+        return
+    for (rid, _seq), (_sid, maps) in zip(items, per):
+        results[rid] = maps
+
+
 def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
             max_hits, hit_budget):
-    """The v2 pass of ``map_all_with_device``: fills ``results``."""
+    """The v2 pass of ``map_all_with_device``: fills ``results``; the reads
+    that leave the device are mapped on the host at the end, in one call."""
     tables, hash_takes = built
     if hit_budget is None:
         hit_budget = 16 * batch_reads
@@ -221,6 +241,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     if tier2_mph <= max_per_hit:
         tier2_mph = 0
     deferred: dict[int, list[tuple[int, bytes]]] = {}
+    to_host: list[tuple[int, bytes]] = []
 
     def collect(pending):
         chunk, flat, ready, anchors, trim, mph = pending
@@ -256,7 +277,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                     DEVICE_MAP_STATS["tier2_reads"] += 1
                 else:
                     DEVICE_MAP_STATS["overflow_reads"] += 1
-                    results[rid] = map_read(index, seq, cfg)
+                    to_host.append((rid, seq))
                 continue
             results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
 
@@ -266,7 +287,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         for i, (rid, seq) in enumerate(chunk):
             if out["overflow"][i]:
                 DEVICE_MAP_STATS["overflow_reads"] += 1
-                results[rid] = map_read(index, seq, cfg)
+                to_host.append((rid, seq))
                 continue
             results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
 
@@ -290,6 +311,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
              for L, members in sorted(deferred.items())
              for j, s in enumerate(range(0, len(members), batch_reads))),
             mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
+    _map_on_host(index, to_host, cfg, results)
 
 
 def refine_mappings(

@@ -13,10 +13,11 @@ Semantics mirrored: >= 500bp hits only, first anchor hit per
 (``scrubber_bfs.py:204-240``), span trim to [200, len-200], min-id BFS
 starts.
 
-The port's copy of the host paths of ``muchsalsa_tpu/pipeline/scrubber.py``:
-the device all-vs-all (``_device_all_vs_all``) and the cross-process record
-exchange (``jax_record_allgather``) stay behind (ROADMAP.md §1 items 10 and
-12); asking for either raises.
+The port's copy of ``muchsalsa_tpu/pipeline/scrubber.py``.  Its device
+all-vs-all (``_device_all_vs_all``) maps each subset on a torch device
+through the port's device mapper; the cross-process record exchange
+(``jax_record_allgather``) stays behind (ROADMAP.md §1, multi-GPU), and asking
+for it raises.
 """
 
 from __future__ import annotations
@@ -24,9 +25,20 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass, field
 
+import torch
+
 from muchsalsa_tpu_torch.config import MapperConfig, ScrubConfig
 from muchsalsa_tpu_torch.io.fasta import SequenceStore
 from muchsalsa_tpu_torch.pipeline.mapper import MinimizerIndex, map_read
+
+# the last scrub_reads call with a device: the device, how many subsets were
+# mapped on it and how many its guard declined (those ran on the host), and
+# each subset's index multiplicity and its count of index chunks (estimated
+# where declined, as built where mapped) and, where mapped, the device
+# mapper's counters summed over its chunks (reads mapped, reads that went to
+# the host mapper, reads through tier 2, padded re-pulls)
+SCRUB_DEVICE_STATS: dict = {}
+_MAP_COUNTERS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
 
 
 @dataclass
@@ -182,8 +194,116 @@ def _subset_schedule(
     return schedule
 
 
+def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
+                       entry_budget: float = 60e6,
+                       max_chunks: float = 2, *,
+                       device: str | torch.device = "cuda"):
+    """All-vs-all of one scrub subset on ``device``.
+
+    Returns (per-read mappings, or None where the guard declines, and the
+    subset's full index).  A 60 k-read subset indexes ~180M minimizer
+    entries — past the v2 join tables' 27-bit packing bound
+    (``build_device_tables`` would refuse and the mapper would map every
+    read on the host).  So the index side is built in CONTIGUOUS id chunks
+    small enough to pack, every subset read is mapped against each chunk
+    on the device, and chunk-local target ids are rebased.  Because chunks
+    are ascending id ranges and the mapper emits hits in (target, strand,
+    diagonal) order, the concatenated per-read hit lists are in exactly
+    the single-index order — records (and therefore scrub output) are
+    identical.
+    """
+    from muchsalsa_tpu_torch.ops.mapping_torch import build_device_tables
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import DEVICE_MAP_STATS, map_all_with_device
+
+    items = list(subset_store.items())
+    # multiplicity guard (the JAX package's, measured on its TPU): in an
+    # all-vs-all every minimizer indexes ~coverage reads, so past the
+    # mapper's expansion budgets EVERY read overflows and "device"
+    # degrades to N-chunk host fallback.  The exact multiplicity is
+    # entries/hashes of the full subset index (built once here and
+    # REUSED — returned to the caller on decline, fed to the single-chunk
+    # path otherwise).  Viability accounts for the mapper's tier-2 ladder:
+    # the read survives iff multiplicity fits the tier-2 cap AND its
+    # expected anchor count (~len/3 candidates x multiplicity) fits the
+    # tier-2 anchor trim.
+    full_idx = MinimizerIndex.build(subset_store, mapper_cfg)
+    subsets = SCRUB_DEVICE_STATS.setdefault("subsets", [])
+    if len(full_idx.hashes) and items:
+        mult = len(full_idx.entry_pos) / len(full_idx.hashes)
+        est_chunks = max(1.0, len(full_idx.entry_pos) / entry_budget)
+        # two disqualifiers:
+        # - chunk multiplication: every subset read maps against EVERY
+        #   index chunk, so an N-chunk subset costs N x the mapping work
+        #   of the host's single index;
+        # - universal tiering: multiplicity near/above the tier-1 cap
+        #   routes essentially every read through a second device pass,
+        #   doubling the work.
+        if est_chunks > max_chunks or mult > 4:
+            print(f"[scrub] device ava declined: multiplicity {mult:.1f}, "
+                  f"~{est_chunks:.0f} index chunks — the coverage-bound "
+                  f"all-vs-all runs host-native (pair-join formulation "
+                  f"needed for a device win, docs/DESIGN.md §9)",
+                  flush=True)
+            SCRUB_DEVICE_STATS["declined"] = SCRUB_DEVICE_STATS.get("declined", 0) + 1
+            subsets.append({"multiplicity": mult, "chunks": est_chunks, "declined": True})
+            return None, full_idx
+    else:
+        mult = 0.0
+    # size chunks by estimated entries (~len/3 minimizers per read).
+    # The binding constraint is usually the rank-probe bucket cap (<=31
+    # distinct hashes per 2^22-bucket), not the 27-bit offset bound, so
+    # packability is VERIFIED per chunk (build_device_tables refuses)
+    # and refused chunks split in half; the built tables feed the
+    # mapper via ``prebuilt`` so nothing builds twice.
+    budget = entry_budget
+    est = [len(seq) / 3 + 64 for _rid, seq in items]
+    chunks: list[tuple[int, int]] = []
+    start, acc = 0, 0.0
+    for i, e in enumerate(est):
+        if acc + e > budget and i > start:
+            chunks.append((start, i))
+            start, acc = i, 0.0
+        acc += e
+    chunks.append((start, len(items)))
+
+    merged: dict[int, list] = {rid: [] for rid, _seq in items}
+    stack = list(reversed(chunks))
+    mapped_chunks = 0
+    mapper = dict.fromkeys(_MAP_COUNTERS, 0)
+    while stack:
+        lo, hi = stack.pop()
+        if lo == 0 and hi == len(items):
+            index_c = full_idx  # single-chunk subset: reuse, don't rebuild
+        else:
+            chunk_store = SequenceStore()
+            for rid, seq in items[lo:hi]:
+                chunk_store.add(subset_store.registry.name(rid), seq)
+            index_c = MinimizerIndex.build(chunk_store, mapper_cfg)
+        built = build_device_tables(
+            index_c.hashes, index_c.offsets, index_c.entry_unitig,
+            index_c.entry_pos, index_c.entry_strand, device=device)
+        if built is None and hi - lo > 1:
+            mid = (lo + hi) // 2
+            stack.append((mid, hi))
+            stack.append((lo, mid))
+            continue
+        per = map_all_with_device(index_c, subset_store, mapper_cfg,
+                                  prebuilt=built, device=device)
+        mapped_chunks += 1
+        for key in _MAP_COUNTERS:
+            mapper[key] += DEVICE_MAP_STATS[key]
+        for rid, maps in per:
+            for m in maps:
+                m.unitig += lo  # rebase chunk-local target ids
+            merged[rid].extend(maps)
+    SCRUB_DEVICE_STATS["on_device"] = SCRUB_DEVICE_STATS.get("on_device", 0) + 1
+    subsets.append({"multiplicity": mult, "chunks": mapped_chunks, "declined": False, **mapper})
+    return [(rid, merged[rid]) for rid, _seq in items], full_idx
+
+
 def _subset_overlap_records(
     subset: list[str], reads: SequenceStore, scrub_cfg, mapper_cfg,
+    device: bool | str | torch.device = False,
 ) -> list[tuple[str, str, int, int, str]]:
     """All-vs-all overlap of one subset -> ordered merge records
     ``(target_read, other_read, start, end, direction)``.
@@ -191,7 +311,10 @@ def _subset_overlap_records(
     Pure function of (subset, reads) — the parallelizable step.  Uses
     one multithreaded native batch call when available; otherwise the
     python path computes each read's minimizer sketch once and reuses
-    it for index build and lookup.
+    it for index build and lookup.  A torch ``device`` runs the lookups
+    there (the subset all-vs-all IS the mapping kernel —
+    ``map_all_with_device``), output identical by the mapper's parity
+    contract, unless the guard of ``_device_all_vs_all`` declines.
     """
     from muchsalsa_tpu_torch import native
     from muchsalsa_tpu_torch.ops.minimizer import minimizers
@@ -205,14 +328,21 @@ def _subset_overlap_records(
         if rid is not None and rid in reads:
             subset_store.add(name, reads.sequence(rid))
 
+    per_read = None
     sketches = None
-    if not use_native:
-        sketches = {
-            sid: minimizers(seq, mapper_cfg.k, mapper_cfg.w)
-            for sid, seq in subset_store.items()
-        }
-    index = MinimizerIndex.build(subset_store, mapper_cfg, sketches=sketches)
-    per_read = map_batch(index, subset_store, mapper_cfg) if use_native else None
+    index = None
+    if device is not False:
+        per_read, index = _device_all_vs_all(subset_store, mapper_cfg, device=device)
+    if per_read is None:
+        if not use_native:
+            sketches = {
+                sid: minimizers(seq, mapper_cfg.k, mapper_cfg.w)
+                for sid, seq in subset_store.items()
+            }
+        if index is None:
+            # (the declined device path already built and returned it)
+            index = MinimizerIndex.build(subset_store, mapper_cfg, sketches=sketches)
+        per_read = map_batch(index, subset_store, mapper_cfg) if use_native else None
     if per_read is None:
         per_read = [
             (
@@ -270,32 +400,36 @@ def scrub_reads(
     process_index: int = 0,
     process_count: int = 1,
     allgather=None,
-    device: bool = False,
+    device: bool | str | torch.device = False,
 ) -> list[tuple[str, bytes]]:
     """Returns scrubbed read records ``(name, sequence)``.
 
-    The JAX package shards the per-subset all-vs-all across processes
-    (``process_count > 1``, records exchanged through ``allgather``) and
-    can run it on the device; the port has neither yet, so
-    ``process_count > 1`` raises (ROADMAP.md §1 item 12), as does
-    ``device=True`` (§1 item 10).
+    ``device`` (a torch device, or False for the host) is where each
+    subset's all-vs-all maps; a subset that the guard of
+    ``_device_all_vs_all`` declines maps on the host, and the guard prints
+    its line; ``SCRUB_DEVICE_STATS`` counts both.  The JAX package also
+    shards the per-subset all-vs-all across processes (``process_count >
+    1``, records exchanged through ``allgather``); the port does not yet,
+    so that raises (ROADMAP.md §1, multi-GPU).
     """
     if process_count > 1 or allgather is not None:
         raise NotImplementedError(
             "the distributed scrub is not ported to muchsalsa_tpu_torch yet "
-            "(ROADMAP.md §1 item 12)")
-    if device:
-        raise NotImplementedError(
-            "the scrub's device all-vs-all is not ported to muchsalsa_tpu_torch yet "
-            "(ROADMAP.md §1 item 10); scrub on the host")
+            "(ROADMAP.md §1, multi-GPU)")
     scrub_cfg = scrub_cfg or ScrubConfig()
     mapper_cfg = mapper_cfg or MapperConfig()
+    if device is not False:
+        from muchsalsa_tpu_torch.device import resolve_device
+
+        device = resolve_device(device)
+        SCRUB_DEVICE_STATS.clear()
+        SCRUB_DEVICE_STATS.update(device=str(device), on_device=0, declined=0, subsets=[])
 
     nodes, adj = build_anchor_graph(paf_lines, scrub_cfg.min_hit_length)
     schedule = _subset_schedule(nodes, adj, scrub_cfg.subset_size)
 
     record_lists = [
-        _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg)
+        _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg, device=device)
         for subset, _center in schedule
     ]
 

@@ -11,7 +11,12 @@ Host numpy only, from a seed: per-field batches in the layout of
   wiggle room (``diff == wiggle_room``) and by one more, whose relative gap
   difference is exactly 15 % (``rel == 15.0``) and just above, duplicated
   anchors (``mx == 0``), all with one score (every chain ties);
-- ``padding``: rows of padding anchors only.
+- ``padding``: rows of padding anchors only;
+- ``inverted``: anchors of 100 bases on a 100-base grid, about half of
+  them with an empty overlap and an illumina range 50 bases longer than
+  the nanopore range, so that their corrected range inverts (hi < lo) and
+  many share a corrected start: the compatibility of (k, l) then differs
+  from that of (l, k).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 
 from muchsalsa_tpu_torch.state import BOOL_FIELDS, FLOAT_FIELDS
 
-KINDS = ("random", "boundary", "padding")
+KINDS = ("random", "boundary", "padding", "inverted")
 WIGGLE_ROOM = 300
 
 # (v step, w step) between consecutive anchors of 100 bases on both
@@ -76,8 +81,55 @@ def chain_batch(B: int, K: int, kind: str, seed: int) -> dict[str, np.ndarray]:
         out["v_dir"] = rng.random((B, K)) < 0.5
         out["w_dir"] = rng.random((B, K)) < 0.5
         sizes = np.where(rng.random(B) < 0.8, K, rng.integers(0, K + 1, B))
+    elif kind == "inverted":
+        # a proper anchor: illumina range (0, 100), overlap (0, 100), so its
+        # corrected range is (ns, ne); an inverted one: illumina range (ns,
+        # ns + 150), overlap empty at (0, 0), so that it corrects to (0, -50)
+        # forward and (2 ns + 150, 2 ns + 100) reversed
+        v_ns = 100.0 * np.sort(rng.integers(0, 2 * K, (B, K)), axis=1)
+        w_ns = 100.0 * np.sort(rng.integers(0, 2 * K, (B, K)), axis=1)
+        v_inv = rng.random((B, K)) < 0.5
+        w_inv = rng.random((B, K)) < 0.5
+        out.update(v_ns=v_ns, v_ne=v_ns + 100, w_ns=w_ns, w_ne=w_ns + 100,
+                   v_is=np.where(v_inv, v_ns, 0.0), v_ie=np.where(v_inv, v_ns + 150, 100.0),
+                   w_is=np.where(w_inv, w_ns, 0.0), w_ie=np.where(w_inv, w_ns + 150, 100.0),
+                   ov_s=np.zeros((B, K)), ov_e=np.where(v_inv | w_inv, 0.0, 100.0),
+                   score=rng.integers(400, 1500, (B, K)).astype(np.float64))
+        out["v_dir"] = rng.random((B, K)) < 0.8
+        out["w_dir"] = rng.random((B, K)) < 0.8
+        sizes = np.where(rng.random(B) < 0.8, K, rng.integers(0, K + 1, B))
     else:
         raise ValueError(f"unknown chain batch kind {kind!r}")
     out["valid"] = np.arange(K)[None, :] < sizes[:, None]
     out["cls_dir"] = rng.random(B) < 0.7
+    return out
+
+
+def inverted_pair_batch(K: int = 8) -> dict[str, np.ndarray]:
+    """One problem of two anchors whose pair order decides the result.
+
+    Anchor 0 is proper: v and w (0, 100), illumina (0, 100), overlap
+    (0, 100), score 500.  Anchor 1 has an empty overlap at (0, 0) and an
+    illumina range on v of (200, 350), longer than its nanopore range (200,
+    300), so its corrected v range inverts to (0, -50); w (200, 300),
+    illumina (0, 0); score 700.  Both directions and the strand class are
+    forward.  The pair (anchor 0, anchor 1) is incompatible and (1, 0)
+    compatible, so a chain DP that tests (k, l), as the JAX package's
+    ``chain_dp_batch`` and the host oracle do, gives scores [500, 700] and
+    backpointers [-1, -1].
+    """
+    out = _empty(1, K)
+    out.update(v_ns=np.array([[0.0, 200.0] + [0.0] * (K - 2)]),
+               v_ne=np.array([[100.0, 300.0] + [0.0] * (K - 2)]),
+               v_is=np.array([[0.0, 200.0] + [0.0] * (K - 2)]),
+               v_ie=np.array([[100.0, 350.0] + [0.0] * (K - 2)]),
+               w_ns=np.array([[0.0, 200.0] + [0.0] * (K - 2)]),
+               w_ne=np.array([[100.0, 300.0] + [0.0] * (K - 2)]),
+               w_ie=np.array([[100.0, 0.0] + [0.0] * (K - 2)]),
+               ov_e=np.array([[100.0, 0.0] + [0.0] * (K - 2)]),
+               score=np.array([[500.0, 700.0] + [0.0] * (K - 2)]))
+    out["v_dir"] = np.arange(K)[None, :] < 2
+    out["w_dir"] = out["v_dir"].copy()
+    out["valid"] = out["v_dir"].copy()
+    out["cls_dir"] = np.ones(1, dtype=bool)
     return out

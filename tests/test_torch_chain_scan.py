@@ -3,7 +3,12 @@
 Inputs are made from numpy seeds and fed to both packages.  Tolerance:
 exact equality of float64 scores and int32 backpointers — both sides do the
 same IEEE operations one at a time, and max/argmin do not reassociate.
+The chain DP tests each pair (anchor k, anchor l) in that order, as the JAX
+package's ``chain_dp_batch`` and the host oracle's ``check_compatibility``
+do; the ``inverted`` kind and ``inverted_pair_batch`` make the order matter.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +24,9 @@ from muchsalsa_tpu_torch.ops.chain_scan import (
 from muchsalsa_tpu_torch.ops.chaining_torch import (
     _FIELD_MAP, bucket_batch, chain_dp_batch_kernel, compat_init_batch)
 from muchsalsa_tpu_torch.state import batch_to_torch, pack_batch, unpack_batch
-from muchsalsa_tpu_torch.testing.chains import KINDS, WIGGLE_ROOM, chain_batch
+from muchsalsa_tpu_torch.ops.chaining import check_compatibility
+from muchsalsa_tpu_torch.testing.chains import (
+    KINDS, WIGGLE_ROOM, chain_batch, inverted_pair_batch)
 
 BUCKETS = (8, 16, 32, 64, 128)
 
@@ -184,7 +191,8 @@ def test_packed_batch_matches_per_field(kind):
     np.testing.assert_array_equal(got["cls_dir"].numpy()[rows], arrs["cls_dir"][rows])
     s, b = chain_dp(fields, flags, offsets, 16, WIGGLE_ROOM)
     s1, b1 = chain_dp_batch_kernel(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
-    s2, b2 = chain_scan_reference(*compat_init_batch(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM))
+    compat, init = compat_init_batch(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
+    s2, b2 = chain_scan_reference(compat.transpose(1, 2), init)
     assert torch.equal(s, s1) and torch.equal(b, b1)
     assert torch.equal(s, s2) and torch.equal(b, b2)
 
@@ -270,3 +278,46 @@ def test_chain_dp_reference_is_the_wrapper_on_cpu():
     s1, b1 = chain_dp(fields, flags, offsets, 32, WIGGLE_ROOM)
     assert torch.equal(s0, s1) and torch.equal(b0, b1)
     assert chain_dp.launches == before  # the plain version is no launch
+
+
+def oracle_context(arrs, b):
+    """Problem ``b`` of a per-field batch as the host oracle's edge context."""
+    f = {name: arrs[name][b] for name in arrs if name not in ("cls_dir", "valid")}
+    return SimpleNamespace(**f, ov_start=f["ov_s"], ov_end=f["ov_e"],
+                           em_dir=np.full(len(f["score"]), bool(arrs["cls_dir"][b])))
+
+
+def test_inverted_pair_matches_jax_and_oracle():
+    """Two anchors whose pair order decides the chain: the oracle admits
+    (1, 0) but not (0, 1), and chain_dp, like the JAX package's
+    chain_dp_batch, keeps both anchors unchained."""
+    arrs = inverted_pair_batch()
+    ctx = oracle_context(arrs, 0)
+    assert not check_compatibility(ctx, 0, 1, WIGGLE_ROOM)
+    assert check_compatibility(ctx, 1, 0, WIGGLE_ROOM)
+    s_ref, b_ref = jax_chain_dp_batch({k: jnp.asarray(v) for k, v in arrs.items()}, WIGGLE_ROOM)
+    s, b = chain_dp(*pack_batch(arrs), 8, WIGGLE_ROOM)
+    assert s[0, :2].tolist() == [500.0, 700.0] and b[0].tolist() == [-1] * 8
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_ref))
+    np.testing.assert_array_equal(b.numpy(), np.asarray(b_ref))
+
+
+@pytest.mark.parametrize("K", (8, 32))
+def test_inverted_batch_follows_the_oracle_pair_order(K):
+    """The inverted kind makes compat_init_batch asymmetric; its [b, k, l]
+    is the oracle's check_compatibility(k, l) at every valid pair, and
+    chain_dp differs from a scan that reads the pairs the other way."""
+    arrs = chain_batch(16, K, "inverted", seed=K + 7)
+    compat, init = compat_init_batch(batch_to_torch(arrs, "cpu"), WIGGLE_ROOM)
+    c = compat.numpy()
+    below = np.tri(K, k=-1, dtype=bool)
+    assert (c != c.transpose(0, 2, 1))[:, below].any()
+    for b in range(16):
+        n = int(arrs["valid"][b].sum())
+        ctx = oracle_context(arrs, b)
+        for k in range(n):
+            for l in range(k + 1, n):
+                assert c[b, k, l] == check_compatibility(ctx, k, l, WIGGLE_ROOM), (b, k, l)
+    s, bp = chain_dp(*pack_batch(arrs), K, WIGGLE_ROOM)
+    s_other, bp_other = chain_scan_reference(compat, init)
+    assert not (torch.equal(s, s_other) and torch.equal(bp, bp_other))

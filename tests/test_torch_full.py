@@ -2,8 +2,9 @@
 
 Raw Illumina pairs and long reads are simulated (numpy, from a seed) by
 ``tests/test_full_pipeline.py::make_inputs``.  The port runs on CPU tensors
-with device mapping on; the JAX package runs its all-host pipeline.
-Tolerance: byte-equal assembly and PAFs.
+with device mapping on, and in one case with the k-mer, DBG and scrub
+device legs on too; the JAX package runs its all-host pipeline.
+Tolerance: byte-equal assembly, PAFs and intermediate FASTA files.
 """
 
 import dataclasses
@@ -20,10 +21,14 @@ from muchsalsa_tpu.pipeline.full import run_full_pipeline as jax_full
 from muchsalsa_tpu_torch.config import DEFAULT_CONFIG
 from muchsalsa_tpu_torch.pipeline import cli
 from muchsalsa_tpu_torch.pipeline import mapper_torch
+from muchsalsa_tpu_torch.ops.dbg_torch import DBG_DEVICE_STATS
+from muchsalsa_tpu_torch.ops.kmer_torch import KMER_DEVICE_STATS
 from muchsalsa_tpu_torch.pipeline.full import run_full_pipeline
+from muchsalsa_tpu_torch.pipeline.scrubber import SCRUB_DEVICE_STATS
 from tests.test_full_pipeline import make_inputs
 
 PAFS = ("01_unitigs.paf", "01_contigs_corrected.paf", "02_contigs_corrected.scrubbed.paf")
+FASTAS = ("01_illu_filtered.fa", "01_unitigs.fa", "02_scrubbed.fa")
 STAGES = ("kmer_filter", "unitigs", "map_unitigs", "unitig_filter", "map_corrected", "scrub",
           "map_scrubbed", "core_assembly")
 
@@ -56,25 +61,39 @@ def jax_refined_run(inputs, tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("refine", (False, True))
-def test_full_matches_jax(inputs, request, tmp_path, refine):
+@pytest.mark.parametrize("refine,legs", [pytest.param(False, False, id="False"),
+                                          pytest.param(True, False, id="True"),
+                                          pytest.param(False, True, id="legs")])
+def test_full_matches_jax(inputs, request, tmp_path, refine, legs):
     """With ``mapper.refine`` the three map stages also refine (the JAX
-    package's exact Myers on the CPU against the port's plain version)."""
+    package's exact Myers on the CPU against the port's plain version);
+    with ``legs`` the k-mer counting, the DBG extension table and the
+    scrub's all-vs-all run on CPU tensors too."""
     _genome, illu1, illu2, nano = inputs
     jax_run = request.getfixturevalue("jax_refined_run" if refine else "jax_run")
     out = tmp_path / "port"
     final = run_full_pipeline(illu1, illu2, nano, out, REFINE if refine else DEFAULT_CONFIG,
-                              device="cpu", device_map=True)
+                              device="cpu", device_map=True, device_kmer=legs,
+                              device_dbg=legs, device_scrub=legs)
     assert final == out / "03.assembly.unpolished.fa"
     assert final.read_bytes() == (jax_run / final.name).read_bytes()
     assert final.read_bytes().count(b">") >= 1
-    for name in PAFS:
+    for name in PAFS + FASTAS:
         assert (out / name).read_bytes() == (jax_run / name).read_bytes(), name
     report = (out / "report.txt").read_text()
     for name in PAFS:
         assert f"device map {name}: " in report
     assert "v2=True" in report and "abundance threshold" in report
     assert mapper_torch.DEVICE_MAP_STATS["device"] == "cpu"
+    assert f"kmer={legs} scrub={legs} dbg={legs} (torch device cpu)" in report
+    for leg in ("kmer", "dbg", "scrub"):
+        assert (f"device {leg}: " in report) == legs, leg
+    if legs:
+        assert KMER_DEVICE_STATS["chunks"] > 0 and DBG_DEVICE_STATS["rows"] > 0
+        # these reads overlap deeply enough that the scrub's guard declines
+        # (tests/test_torch_scrub.py maps subsets on the device)
+        scrub = SCRUB_DEVICE_STATS
+        assert scrub["subsets"] and scrub["on_device"] + scrub["declined"] == len(scrub["subsets"])
 
 
 def test_full_host_mapping_matches_jax(inputs, jax_run, tmp_path):
@@ -95,18 +114,6 @@ def test_full_resume_skips_every_stage(inputs, tmp_path, capsys):
     assert json.loads((tmp_path / "manifest.json").read_text()) == manifest
     for stage in STAGES:
         assert f"{stage}: up to date, skipping" in log
-
-
-@pytest.mark.parametrize("flag", ("device_kmer", "device_dbg", "device_scrub"))
-def test_unported_device_legs_raise(inputs, tmp_path, flag):
-    _genome, illu1, illu2, nano = inputs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_full_pipeline(illu1, illu2, nano, tmp_path, device="cpu", **{flag: True})
-    assert not (tmp_path / "manifest.json").exists()
-    cli_flag = "--" + flag.replace("_", "-")
-    with pytest.raises(NotImplementedError):
-        cli.main(["full", "--illumina1", str(illu1), "--nanopore", str(nano),
-                  "--out", str(tmp_path / "cli"), "--device", "cpu", cli_flag])
 
 
 def test_full_on_cuda_without_a_card_raises(inputs, tmp_path, monkeypatch):
@@ -138,10 +145,12 @@ def test_full_and_config_cli(inputs, jax_run, tmp_path, capsys):
     _genome, illu1, illu2, nano = inputs
     assert cli.main(["full", "--illumina1", str(illu1), "--illumina2", str(illu2),
                      "--nanopore", str(nano), "--out", str(tmp_path / "out"),
-                     "--device", "cpu"]) == 0
+                     "--device", "cpu", "--device-kmer", "--device-dbg", "--no-device-scrub"]) == 0
     final = tmp_path / "out" / "03.assembly.unpolished.fa"
     assert f"Assembly written to {final}" in capsys.readouterr().out
     assert final.read_bytes() == (jax_run / final.name).read_bytes()
+    report = (tmp_path / "out" / "report.txt").read_text()
+    assert "kmer=True scrub=False dbg=True (torch device cpu)" in report
     assert cli.main(["full", "--illumina1", str(tmp_path / "absent.fa"), "--nanopore",
                      str(nano), "--out", str(tmp_path / "x"), "--device", "cpu"]) == 1
 

@@ -24,7 +24,7 @@ from muchsalsa_tpu_torch.ops.myers_torch import (
     myers_banded, myers_banded_reference, myers_edit_distance, myers_edit_distance_reference)
 from muchsalsa_tpu_torch.state import pack_batch
 from muchsalsa_tpu_torch.testing.chains import KINDS as CHAIN_KINDS
-from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch
+from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch, inverted_pair_batch
 from muchsalsa_tpu_torch.testing.pairs import random_pairs
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +92,16 @@ def test_chain_dp_kernel_matches_reference(cuda, B, K, kind):
     s_ref, b_ref = chain_dp_reference(*packed, K, WIGGLE_ROOM)
     assert torch.equal(s, s_ref)
     assert torch.equal(b, b_ref)
+
+
+def test_chain_dp_kernel_tests_pairs_in_the_oracle_order(cuda):
+    """The two anchors whose pair order decides the chain: the kernel, like
+    its plain version and the JAX package's chain_dp_batch, chains neither."""
+    packed = [x.to(cuda) for x in pack_batch(inverted_pair_batch())]
+    s, b = chain_dp(*packed, 8, WIGGLE_ROOM)
+    assert s[0, :2].tolist() == [500.0, 700.0] and b[0].tolist() == [-1] * 8
+    s_ref, b_ref = chain_dp_reference(*packed, 8, WIGGLE_ROOM)
+    assert torch.equal(s, s_ref) and torch.equal(b, b_ref)
 
 
 def test_chain_dp_kernel_rejects_bad_inputs(cuda):
