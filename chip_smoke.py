@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's core assembler, its mapper (device mapping
-and refinement) and its full pipeline once on one NVIDIA GPU.
+by the v2 and the v1 join, and refinement) and its full pipeline once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -71,7 +72,18 @@ exits non-zero without its last line:
              scrub subset on the card and none declined by its guard, no jax
              loaded; stage walls (the three legs' side by side), each scrub
              subset's multiplicity and index chunks, the report's device
-             lines, both walls and peak CUDA memory.
+             lines, both walls and peak CUDA memory;
+10. join_v1 — a 140 Mb random genome in 1 kb unitigs (the JAX package's
+             largest tier), whose index the v2 tables must refuse, and 2,048
+             reads of 9 kb from both strands with 8 % noise, through the
+             port's map_all(device=True) on the card: the v1 join (bitmap
+             probe, compaction, binary search, expansion, the chaining tail)
+             identical to host mapping with refinement off and on (both
+             refining on the card, the exact Myers kernel launched), v2 off
+             and fewer overflow reads than reads; the host index and
+             join-table builds, the bytes of the index and the bitmap on the
+             card, peak CUDA memory, and the median CUDA-event ms of the
+             join's four parts on one full batch.
 
 Then the kernel summary line (each kernel's launches on its path, error,
 kernel and plain times, bound and what bounds it, and the library yardstick:
@@ -583,6 +595,166 @@ def phase_device_map(card: str, data, device) -> None:
          identical=True)
 
 
+JOIN_V1_GENOME = 140_000_000  # the JAX package's 140 Mb tier: v2 tables refused
+JOIN_V1_UNITIG = 1_000
+JOIN_V1_READS = 2_048          # 8 full batches of 256 in the 10,240 bucket
+JOIN_V1_READ_LENGTH = 9_000
+
+
+def join_v1_data(genome_length: int, n_reads: int, seed: int = 20260819):
+    """A random genome cut into contiguous 1 kb unitigs (the genome of
+    scripts/v2_refusal_sizes.py at the same size), and ``n_reads`` 9 kb
+    reads from random positions on both strands with 8 % noise."""
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import SequenceStore
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, random_genome
+    from muchsalsa_tpu_torch.utils.seq import reverse_complement
+
+    rng = np.random.default_rng(seed)
+    genome = random_genome(rng, genome_length)
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for i, s in enumerate(range(0, genome_length - JOIN_V1_UNITIG + 1, JOIN_V1_UNITIG)):
+        unitigs.add(f"u{i}", genome[s : s + JOIN_V1_UNITIG])
+    starts = rng.integers(0, genome_length - JOIN_V1_READ_LENGTH, n_reads)
+    forward = rng.integers(0, 2, n_reads).astype(bool)
+    for i, (s, fwd) in enumerate(zip(starts.tolist(), forward.tolist())):
+        read = genome[s : s + JOIN_V1_READ_LENGTH]
+        reads.add(f"r{i}", add_noise(rng, read if fwd else reverse_complement(read), 0.08))
+    return unitigs, reads
+
+
+def time_v1_parts(reads, index, cfg, device) -> dict:
+    """Median CUDA-event ms of the v1 join's parts on one full batch (the
+    first 256 reads, in their length bucket): the sketch, the bitmap probe
+    with the candidate compaction, the search with the expansion, the
+    tail."""
+    from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+    from muchsalsa_tpu_torch.ops.minimizer_torch import minimizer_sketch
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import (
+        device_bucket_budgets, device_bucket_len)
+    from muchsalsa_tpu_torch.utils.seq import encode_2bit
+
+    seqs = [seq for _rid, seq in reads.items()][:256]
+    L = device_bucket_len(max(len(s) for s in seqs))
+    codes = np.full((256, L), 4, dtype=np.uint8)
+    lens = np.zeros(256, dtype=np.int32)
+    for i, seq in enumerate(seqs):
+        codes[i, : len(seq)] = encode_2bit(seq)
+        lens[i] = len(seq)
+    codes, lens = torch.from_numpy(codes).to(device), torch.from_numpy(lens).to(device)
+    _sel, pos_L, trim_L = device_bucket_budgets(L, cfg.k, 2048, 4)
+    bitmap, _rank, _rounds = mpt.build_join_tables(index.hashes, device=device)
+    arrays = (mpt.u32_tensor(index.hashes, device),
+              torch.from_numpy(index.offsets.astype(np.int32)).to(device),
+              *(torch.from_numpy(a).to(device)
+                for a in (index.entry_unitig, index.entry_pos, index.entry_strand)))
+    sk = minimizer_sketch(codes, lens, cfg.k, cfg.w)
+    cands = mpt.v1_candidates(*sk, arrays[0], bitmap, pos_L)
+    anchors = mpt.v1_expand(*cands, *arrays, pos_L, 4)
+    tail = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
+                min_chain_score=cfg.min_chain_score, max_hits=64)
+    parts = {
+        "sketch": lambda: minimizer_sketch(codes, lens, cfg.k, cfg.w),
+        "probe_compact": lambda: mpt.v1_candidates(*sk, arrays[0], bitmap, pos_L),
+        "search_expand": lambda: mpt.v1_expand(*cands, *arrays, pos_L, 4),
+        "tail": lambda: mpt._anchors_to_hits(*anchors[:4], overflow=anchors[4], trim=trim_L,
+                                             **tail),
+    }
+    return {"bucket": L, "max_pos": pos_L, "trim": trim_L,
+            "n_cand_mean": float(cands[4].double().mean()),
+            "ms": {name: median_ms(fn, reps=10) for name, fn in parts.items()}}
+
+
+def phase_join_v1(card: str, device, genome_length: int = JOIN_V1_GENOME,
+                  n_reads: int = JOIN_V1_READS, expect_refusal: bool = True) -> int:
+    """Phase 10: an index that the v2 tables refuse (a 140 Mb random genome
+    in 1 kb unitigs) mapped through the port's map_all on the card by the
+    v1 join, identical to host mapping with refinement off and on (both
+    refining on the card), fewer reads on the host than in all; the index
+    and join-table builds, the bytes on the card, peak CUDA memory and the
+    v1 join's parts timed on one full batch.  Returns the exact Myers
+    kernel's launches of the refined device run."""
+    from muchsalsa_tpu_torch.config import Config
+    from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+    from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    unitigs, reads = join_v1_data(genome_length, n_reads)
+    data_s = time.perf_counter() - t0
+    cfg = Config().mapper
+    t0 = time.perf_counter()
+    index = mt.MinimizerIndex.build(unitigs, cfg)
+    index_s = time.perf_counter() - t0
+    H, E = len(index.hashes), int(index.offsets[-1])
+    bcnt = np.bincount(index.hashes >> np.uint32(32 - mpt.RANK2_LOG2),
+                       minlength=1 << mpt.RANK2_LOG2)
+    t0 = time.perf_counter()
+    refused = mpt.build_device_tables(index.hashes, index.offsets, index.entry_unitig,
+                                      index.entry_pos, index.entry_strand, device=device) is None
+    refuse_s = time.perf_counter() - t0
+    if expect_refusal and not refused:
+        raise AssertionError(f"the v2 tables took the {genome_length} b index (H={H})")
+    t0 = time.perf_counter()
+    bitmap, rank, rounds = mpt.build_join_tables(index.hashes, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+    join_tables_s = time.perf_counter() - t0
+    del bitmap, rank
+    device_bytes = {"hashes": 8 * H, "offsets": 4 * (H + 1), "entries": 9 * E,
+                    "bitmap": 4 << (mpt.BITMAP_LOG2_BITS - 5),
+                    "rank": 4 * ((1 << mpt.RANK_LOG2) + 1)}
+    names = dict(unitig_names=lambda u: unitigs.registry.name(u),
+                 read_names=lambda r: reads.registry.name(r))
+
+    t0 = time.perf_counter()
+    got = mt.map_all(index, reads, cfg, device=True, torch_device=device, **names)
+    device_s = time.perf_counter() - t0
+    stats = dict(mt.DEVICE_MAP_STATS)
+    t0 = time.perf_counter()
+    want = mt.map_all(index, reads, cfg, device=False, **names)
+    host_s = time.perf_counter() - t0
+    if got != want:
+        raise AssertionError(f"v1 device mapping differs from host mapping: {len(got)} "
+                             f"against {len(want)} lines")
+    if stats["v2"] is not False or not stats["overflow_reads"] < stats["total_reads"] == n_reads:
+        raise AssertionError(f"the reads were not mapped by the v1 join: {stats}")
+
+    refine = dataclasses.replace(cfg, refine=True)
+    myers_edit_distance.launches = 0
+    t0 = time.perf_counter()
+    refined_dev = mt.map_all(index, reads, refine, unitigs=unitigs, device=True,
+                             torch_device=device, **names)
+    refined_device_s = time.perf_counter() - t0
+    launches = myers_edit_distance.launches
+    refined_stats = dict(mt.DEVICE_MAP_STATS)
+    t0 = time.perf_counter()
+    refined_host = mt.map_all(index, reads, refine, unitigs=unitigs, device=False,
+                              torch_device=device, **names)
+    refined_host_s = time.perf_counter() - t0
+    if refined_dev != refined_host or refined_stats["v2"] is not False:
+        raise AssertionError(f"refined v1 device mapping differs from refined host mapping "
+                             f"({len(refined_dev)} against {len(refined_host)} lines)")
+    if on_card and launches == 0:
+        raise AssertionError("the refined v1 run never launched the exact Myers kernel")
+    assert_no_reference("the port's v1 join")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    parts = time_v1_parts(reads, index, cfg, device) if on_card else "not measured"
+    emit("join_v1", card=card, genome_bases=genome_length, unitigs=len(unitigs.ids()),
+         reads=n_reads, read_length=JOIN_V1_READ_LENGTH, hashes=H, entries=E,
+         largest_probe_bucket=int(bcnt.max()), probe_buckets_over_31=int((bcnt > 31).sum()),
+         v2_refused=refused, data_s=data_s, index_s=index_s, refuse_s=refuse_s,
+         join_tables_s=join_tables_s, join_rounds=rounds, device_bytes=device_bytes,
+         device_bytes_total=sum(device_bytes.values()), device_wall_s=device_s,
+         host_wall_s=host_s, lines=len(got), stats=stats,
+         overflow_share=stats["overflow_reads"] / stats["total_reads"],
+         refined_device_wall_s=refined_device_s, refined_host_wall_s=refined_host_s,
+         myers_full_launches=launches, cuda_peak_bytes=peak, parts=parts, identical=True)
+    return launches
+
+
 def write_fasta(path: Path, records) -> None:
     with open(path, "wb") as fh:
         for name, seq in records:
@@ -868,6 +1040,10 @@ def main() -> int:
     # --- 9. raw reads -> assembly, mapping on the card
     with tempfile.TemporaryDirectory(prefix="ms_chip_smoke_full_") as td:
         phase_full(card, Path(td), sim, map_data[1], "cuda")
+    del sim, map_data
+
+    # --- 10. the v1 join on an index that the v2 tables refuse
+    phase_join_v1(card, "cuda")
 
     assert_no_reference("chip_smoke")
     # no single PyTorch call computes any of the five functions: no yardstick;

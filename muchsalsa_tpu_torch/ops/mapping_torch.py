@@ -1,9 +1,9 @@
-"""Read -> unitig mapping on a torch device: the v2 join path.
+"""Read -> unitig mapping on a torch device: the v2 and the v1 join.
 
-Port of the production path of ``muchsalsa_tpu/ops/mapping_jax.py``: the
-host builders of the packed join tables (``_pack_blocks``, ``_row_bucket``,
+Port of ``muchsalsa_tpu/ops/mapping_jax.py``: the host builders of the
+packed join tables (``_pack_blocks``, ``_row_bucket``,
 ``build_device_tables``, ``pack_codes``) and the six stages that
-``pipeline/mapper.py::map_all_with_device`` runs per batch:
+``pipeline/mapper.py::map_all_with_device`` runs per batch on the v2 path:
 
 1. ``sketch_device_packed``: unpack the 2-bit codes, minimizer sketch;
 2. ``select_compact_device_v2``: compact the selected minimizers;
@@ -18,9 +18,12 @@ int64 here, holding values in ``[0, 2**32)``; everything else keeps its
 value range.  ``lax.sort(..., num_keys=2)`` becomes one stable sort of a
 packed int64 key (the primary key in the high 32 bits) with ``gather`` for
 the payloads.  The JAX sort is unstable, so where keys tie (padding slots)
-the payloads of the two packages may differ; no output reads them.  The
-legacy v1 join (bitmap and binary search) is not ported: ``map_all`` maps
-with the host ``map_read`` where ``build_device_tables`` returns None.
+the payloads of the two packages may differ; no output reads them.
+
+Where ``build_device_tables`` refuses the index, the mapper runs the v1
+join instead: ``build_join_tables`` (the occupancy bitmap and the rank
+table) and ``map_reads_device``, one call a batch over unpacked codes and
+the index's five arrays on the device, ending in the same chaining tail.
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from muchsalsa_tpu_torch.ops.minimizer_torch import MASK32, minimizer_sketch
+from muchsalsa_tpu_torch.ops.minimizer_torch import (
+    BITMAP_LOG2_BITS, MASK32, build_hash_bitmap, minimizer_sketch)
 
 I32_MAX = 2**31 - 1
+RANK_LOG2 = 20           # v1 rank-table buckets over the 32-bit hash space
 RANK2_LOG2 = 22          # probe buckets; FP rate = H / 2^22 per bucket
 _PACK_BITS = 27          # low bits of a packed (offset | count<<27) word
 _PACK_MASK = (1 << _PACK_BITS) - 1
@@ -102,7 +107,8 @@ def build_device_tables(idx_hashes, idx_offsets, entry_unitig, entry_pos, entry_
 
     Returns (DeviceTables, hash_takes), or None when the index violates the
     packing bounds (offsets beyond 27 bits, or a probe bucket with more
-    than 31 distinct hashes) or is empty.
+    than 31 distinct hashes) or is empty.  Every bound is checked before a
+    table is filled, so a refusal costs one pass over the hashes.
     """
     h = np.asarray(idx_hashes, dtype=np.uint32)
     off = np.asarray(idx_offsets, dtype=np.int64)
@@ -110,20 +116,8 @@ def build_device_tables(idx_hashes, idx_offsets, entry_unitig, entry_pos, entry_
     if H == 0:
         return None
 
-    ecnt = np.diff(off)
-    # --- pack entries: per-hash blocks ---
-    estarts, E2 = _pack_blocks(ecnt)
-    if E2 >= (1 << _PACK_BITS):
-        return None
-    packed = np.asarray(entry_unitig, np.int64) * 2 + np.asarray(entry_strand, np.int64)
-    pos = np.asarray(entry_pos, np.int64)
-    ER = _row_bucket((E2 + 7) // 8 + 4)  # pad rows: clipped fetches read zeros
-    erows = np.zeros((ER, 16), dtype=np.int32)
-    dst = np.repeat(estarts, ecnt) + (np.arange(int(off[-1])) - np.repeat(off[:-1], ecnt))
-    erows[dst // 8, dst % 8] = packed
-    erows[dst // 8, 8 + dst % 8] = pos
-
-    # --- pack hashes: per-bucket blocks ---
+    # the bounds, cheapest first: a probe bucket past 31 hashes refuses
+    # every large genome (from ~60 Mb of random sequence)
     b = (h >> np.uint32(32 - RANK2_LOG2)).astype(np.int64)
     bcnt = np.bincount(b, minlength=1 << RANK2_LOG2)
     gmax = int(bcnt.max())
@@ -133,6 +127,21 @@ def build_device_tables(idx_hashes, idx_offsets, entry_unitig, entry_pos, entry_
     hstarts_b, H2 = _pack_blocks(bcnt[nonempty])
     if H2 >= (1 << _PACK_BITS):
         return None
+    ecnt = np.diff(off)
+    estarts, E2 = _pack_blocks(ecnt)
+    if E2 >= (1 << _PACK_BITS):
+        return None
+
+    # --- pack entries: per-hash blocks ---
+    packed = np.asarray(entry_unitig, np.int64) * 2 + np.asarray(entry_strand, np.int64)
+    pos = np.asarray(entry_pos, np.int64)
+    ER = _row_bucket((E2 + 7) // 8 + 4)  # pad rows: clipped fetches read zeros
+    erows = np.zeros((ER, 16), dtype=np.int32)
+    dst = np.repeat(estarts, ecnt) + (np.arange(int(off[-1])) - np.repeat(off[:-1], ecnt))
+    erows[dst // 8, dst % 8] = packed
+    erows[dst // 8, 8 + dst % 8] = pos
+
+    # --- pack hashes: per-bucket blocks ---
     # destination of each hash = its bucket's start + rank within bucket
     first_idx = np.concatenate([[0], np.cumsum(bcnt[nonempty])[:-1]])
     within = np.arange(H) - np.repeat(first_idx, bcnt[nonempty])
@@ -405,9 +414,15 @@ def anchors_to_hits_device_packed(key, diag, aq, at, overflow, max_ecnt=None, k:
     the expansion-cap violation (``max_ecnt > cap``) into the overflow."""
     if max_ecnt is not None and per_hit_cap is not None:
         overflow = overflow | (max_ecnt > per_hit_cap)
-    out = _anchors_to_hits(key, diag, aq, at, k, bandwidth, min_anchor_count,
-                           min_chain_score, max_hits, overflow, trim=trim)
-    R = key.shape[0]
+    return pack_hits(_anchors_to_hits(key, diag, aq, at, k, bandwidth, min_anchor_count,
+                                      min_chain_score, max_hits, overflow, trim=trim))
+
+
+def pack_hits(out: dict) -> torch.Tensor:
+    """The ``_anchors_to_hits`` dict as one (R, 8*max_hits + 2) int64
+    tensor ``[HIT_FIELDS x max_hits | n_hits | overflow]``, so that a
+    batch's hits cross to the host in one copy (``unpack_hits``)."""
+    R = out["n_hits"].shape[0]
     head = torch.stack([out[f] for f in HIT_FIELDS], dim=1).reshape(R, -1)
     tail = torch.stack([out["n_hits"], out["overflow"].to(torch.int64)], dim=1)
     return torch.cat([head, tail], dim=1)
@@ -459,3 +474,129 @@ def unpack_hits(arr, max_hits: int) -> dict:
     out["n_hits"] = arr[:, -2]
     out["overflow"] = arr[:, -1] != 0
     return out
+
+
+# ---------------------------------------------------------------------------
+# the v1 join: occupancy bitmap, binary search over the sorted hashes
+
+
+def build_join_tables(idx_hashes, *, device) -> tuple:
+    """The v1 join's host-built tables on ``device``: the occupancy bitmap
+    (``minimizer_torch.build_hash_bitmap``), the rank table ``rank[b] =
+    lower_bound(hashes, b << (32 - RANK_LOG2))`` with ``rank[2**RANK_LOG2]
+    = H`` ((2**RANK_LOG2 + 1,) int32), and the number of binary-search
+    rounds that the largest rank bucket needs.  Returns (bitmap, rank,
+    rounds) for ``map_reads_device``."""
+    h = np.asarray(idx_hashes, dtype=np.uint32)
+    bounds = (np.arange(1 << RANK_LOG2, dtype=np.uint64) << (32 - RANK_LOG2)).astype(np.uint32)
+    rank = np.concatenate([np.searchsorted(h, bounds).astype(np.int32), np.int32([len(h)])])
+    max_gap = int(np.max(np.diff(rank))) if len(h) else 0
+    rounds = max(int(np.ceil(np.log2(max_gap + 1))), 1)
+    return build_hash_bitmap(h, device=device), torch.from_numpy(rank).to(device), rounds
+
+
+def v1_candidates(selected, h, strand, idx_hashes, bitmap=None, max_pos: int = 512,
+                  log2_bits: int = BITMAP_LOG2_BITS):
+    """The v1 join's prefilter and compaction: the selected positions whose
+    folded hash is set in ``bitmap`` (or, without one, whose hash is in
+    ``idx_hashes``), compacted in position order into ``max_pos`` slots.
+
+    Returns (h_c, strand_c, pos_c, pos_valid, n_cand): the hash, strand
+    and read position of each slot (position 0's at empty slots), which
+    slots hold a candidate, and each read's candidate count.  Bitmap false
+    positives count and take slots, as in the JAX package."""
+    R, Lk = selected.shape
+    if bitmap is not None:
+        folded = h & ((1 << log2_bits) - 1)
+        probe = (bitmap[folded >> 5].to(torch.int64) >> (folded & 31)) & 1
+        cand = selected & (probe != 0)
+    elif idx_hashes.numel():
+        loc0 = torch.clamp(torch.searchsorted(idx_hashes, h), max=idx_hashes.numel() - 1)
+        cand = (idx_hashes[loc0] == h) & selected
+    else:
+        cand = torch.zeros_like(selected)
+    pos_ids = torch.arange(Lk, device=h.device).expand(R, Lk)
+    pos_sorted = torch.sort(torch.where(cand, pos_ids, I32_MAX), dim=1).values[:, :max_pos]
+    pos_valid = pos_sorted < I32_MAX
+    pos_c = torch.where(pos_valid, pos_sorted, 0)
+    return (torch.gather(h, 1, pos_c), torch.gather(strand, 1, pos_c), pos_c, pos_valid,
+            cand.sum(dim=1))
+
+
+def v1_expand(h_c, strand_c, pos_c, pos_valid, n_cand, idx_hashes, idx_offsets, entry_unitig,
+              entry_pos, entry_strand, max_pos: int, max_per_hit: int = 4):
+    """The v1 join's exact membership search and entry expansion.
+
+    Each slot's hash is looked up in the sorted ``idx_hashes`` (int64,
+    32-bit values) by one ``searchsorted``: the lower bound that the JAX
+    package's rank-bounded binary search also finds.  A found hash expands
+    to its first ``max_per_hit`` index entries.  Returns the flat anchors
+    (key, diag, aq, at), each (R, max_pos * max_per_hit), and ``overflow``:
+    more candidates than ``max_pos``, or a hash with more entries than
+    ``max_per_hit``."""
+    R, P = h_c.shape
+    A = max_per_hit
+    H = idx_hashes.numel()
+    dev = h_c.device
+    if H:
+        loc = torch.clamp(torch.searchsorted(idx_hashes, h_c), max=H - 1)
+        found = (idx_hashes[loc] == h_c) & pos_valid
+        lo = idx_offsets[loc].to(torch.int64)
+        hi = idx_offsets[loc + 1].to(torch.int64)
+    else:
+        found = torch.zeros_like(pos_valid)
+        lo = hi = torch.zeros_like(pos_c)
+    lo_c = torch.where(found, lo, 0)
+    cnt_full = torch.where(found, hi - lo, 0)
+    cnt_c = torch.clamp(cnt_full, max=A)
+    overflow = (n_cand > max_pos) | (cnt_full > A).any(dim=1)
+
+    a_ids = torch.arange(A, device=dev)
+    a_valid = a_ids < cnt_c[..., None]
+    src = torch.where(a_valid, lo_c[..., None] + a_ids, 0)
+
+    def entries(arr):
+        return arr[src].to(torch.int64) if H else torch.zeros_like(src)
+
+    au = entries(entry_unitig)
+    aq = entries(entry_pos)
+    arel = entries(entry_strand) == strand_c.to(torch.int64)[..., None]
+    at = pos_c[..., None].expand(R, P, A)
+    S = P * A
+    key = torch.where(a_valid, au * 2 + arel.to(torch.int64), I32_MAX).reshape(R, S)
+    diag = torch.where(a_valid, torch.where(arel, at - aq, at + aq), 0).reshape(R, S)
+    aq = torch.where(a_valid, aq, 0).reshape(R, S)
+    at = torch.where(a_valid, at, 0).reshape(R, S)
+    return key, diag, aq, at, overflow
+
+
+def map_reads_device(codes, lens, idx_hashes, idx_offsets, entry_unitig, entry_pos,
+                     entry_strand, bitmap=None, rank_table=None, *, k: int = 15, w: int = 5,
+                     bandwidth: int = 500, min_anchor_count: int = 4, min_chain_score: int = 100,
+                     max_pos: int = 512, max_per_hit: int = 4, max_hits: int = 64,
+                     log2_bits: int = BITMAP_LOG2_BITS, join_rounds: int = 0,
+                     trim: int | None = None):
+    """Map a batch of reads against the index on the tensors' device: the
+    v1 join (``mapping_jax.map_reads_device``).
+
+    ``codes``: (R, L) base codes, pad 4; ``lens``: (R,); ``idx_hashes``:
+    (H,) sorted int64 hashes in ``[0, 2**32)``; ``idx_offsets``: (H + 1,)
+    CSR offsets; ``entry_unitig``, ``entry_pos``, ``entry_strand``: (E,).
+    ``bitmap`` and ``rank_table`` come from ``build_join_tables``; the
+    bitmap sets which positions are candidates (false positives included).
+    The JAX package bounds its binary search with ``rank_table`` in
+    ``join_rounds`` rounds; the index it finds is the one ``searchsorted``
+    returns, which this function uses whether or not they are given.
+
+    Returns the dict of ``HIT_FIELDS`` (R, max_hits) plus ``n_hits`` and
+    ``overflow`` (anchor budgets exceeded: map the read on the host).
+    """
+    del rank_table, join_rounds  # the search below finds the same index
+    L = codes.shape[1]
+    max_pos = min(max_pos, L - k + 1)  # short batches can't exceed Lk positions
+    selected, h, strand = minimizer_sketch(codes, lens, k, w)
+    cands = v1_candidates(selected, h, strand, idx_hashes, bitmap, max_pos, log2_bits)
+    key, diag, aq, at, overflow = v1_expand(*cands, idx_hashes, idx_offsets, entry_unitig,
+                                            entry_pos, entry_strand, max_pos, max_per_hit)
+    return _anchors_to_hits(key, diag, aq, at, k, bandwidth, min_anchor_count, min_chain_score,
+                            max_hits, overflow, trim=trim)

@@ -1,9 +1,10 @@
 """Batched minimizer sketch on a torch device.
 
-Port of ``muchsalsa_tpu/ops/minimizer_jax.py::fmix32_jnp`` (:21) and
-``minimizer_sketch`` (:32-88): canonical k-mer packing, fmix32 hashing and
-leftmost-minimum window selection over a padded ``(R, L)`` read batch, the
-seeding stage of device mapping.
+Port of ``muchsalsa_tpu/ops/minimizer_jax.py::fmix32_jnp`` (:21),
+``minimizer_sketch`` (:32-88) and ``build_hash_bitmap`` (:96-109):
+canonical k-mer packing, fmix32 hashing and leftmost-minimum window
+selection over a padded ``(R, L)`` read batch, the seeding stage of device
+mapping, and the occupancy bitmap of the v1 join.
 
 The JAX function carries hashes as uint32.  Here they are int64 holding
 values in ``[0, 2**32)``: every shift and sum is masked to 32 bits, and
@@ -13,9 +14,11 @@ product reaches 2**48 and nothing relies on signed wrap-around.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+BITMAP_LOG2_BITS = 28  # a 32 MB bitmap; false-positive rate = |index| / 2^28
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -93,3 +96,19 @@ def minimizer_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int = 15, w: in
         selected |= _one_hot_argmin(h) & small[:, None]
 
     return selected & valid, h, strand
+
+
+def build_hash_bitmap(index_hashes, log2_bits: int = BITMAP_LOG2_BITS, *, device):
+    """Occupancy bitmap over the index's hashes folded to ``log2_bits``
+    bits, for one-gather membership probes: bit ``f & 31`` of word ``f >>
+    5`` is set for every folded hash ``f``.  Built on the host (scatter-OR)
+    and placed on ``device`` as ``2**(log2_bits - 5)`` int32 words holding
+    the JAX package's uint32 bits; an arithmetic shift followed by ``& 1``
+    reads any bit."""
+    h = np.asarray(index_hashes, dtype=np.uint32)
+    folded = h & np.uint32((1 << log2_bits) - 1)
+    word = (folded >> np.uint32(5)).astype(np.int64)
+    bit = (folded & np.uint32(31)).astype(np.uint32)
+    table = np.zeros(1 << (log2_bits - 5), dtype=np.uint32)
+    np.bitwise_or.at(table, word, np.uint32(1) << bit)
+    return torch.from_numpy(table.view(np.int32)).to(device)

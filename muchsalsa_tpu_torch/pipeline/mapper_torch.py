@@ -11,7 +11,9 @@ Device mapping runs the six v2 stages of ``ops.mapping_torch`` per batch of
 one length bucket and pulls each batch's hits in the dense layout.  Reads
 that break a static budget take a second, wider tier on the device or go
 to the host mapper (one ``map_batch`` call at the end); either way the
-result equals ``map_read``'s.
+result equals ``map_read``'s.  Where the index breaks the v2 packing
+bounds, each batch goes through the v1 join (``map_reads_device``) instead,
+and the reads it flags go to the host mapper.
 Refinement packs every mapped region into one batch
 (``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
 and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
@@ -36,9 +38,9 @@ from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, pack_problems
 from muchsalsa_tpu_torch.ops.mapping_torch import (
     HIT_FIELDS, anchors_to_hits_device_dense, anchors_to_hits_device_packed, build_device_tables,
-    compact_candidates_device_v2, expand_anchors_device_v2, pack_codes,
-    probe_candidates_device_v2, select_compact_device_v2, sketch_device_packed, u32_tensor,
-    unpack_hits)
+    build_join_tables, compact_candidates_device_v2, expand_anchors_device_v2, map_reads_device,
+    pack_codes, pack_hits, probe_candidates_device_v2, select_compact_device_v2,
+    sketch_device_packed, u32_tensor, unpack_hits)
 from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 
 __all__ = [
@@ -101,13 +103,15 @@ def map_all_with_device(
     off) and twice the widths; every other violating read is mapped on the
     host.  A batch with more hits than ``hit_budget`` (default 16 per row)
     is pulled again in the padded layout.  ``prebuilt`` is the
-    ``build_device_tables`` result for ``index`` on ``device``.  Where the
-    index breaks the v2 packing bounds, every read is mapped on the host
-    (the v1 join is not ported) and the stats say ``v2=False``.
+    ``build_device_tables`` result for ``index`` on ``device``.
 
     Packed read batches stay on the device in a cache on the store (LRU,
     ``MS_TPU_DEV_CACHE_MB`` MiB, default 2048), so later calls on the same
     store reuse them; tier-2 batches depend on the index and never cache.
+
+    Where the index breaks the v2 packing bounds (or ``max_per_hit`` >= 31),
+    the v1 join maps every batch on the device (``_map_v1``) and the stats
+    say ``v2=False``; it has no tier 2, no dense pull and no batch cache.
     Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``.
     """
     dev = resolve_device(device)
@@ -124,8 +128,7 @@ def map_all_with_device(
         tier2_reads=0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
-        _map_on_host(index, items, cfg, results)
-        DEVICE_MAP_STATS["overflow_reads"] = len(items)
+        _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits)
     else:
         _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                 max_per_hit, max_hits, hit_budget)
@@ -153,6 +156,99 @@ def _map_on_host(index, items, cfg, results) -> None:
         results[rid] = maps
 
 
+def _length_buckets(items) -> list[tuple[int, list[tuple[int, bytes]]]]:
+    """``items`` grouped by ``device_bucket_len``, shortest bucket first."""
+    buckets: dict[int, list[tuple[int, bytes]]] = {}
+    for rid, seq in items:
+        buckets.setdefault(device_bucket_len(len(seq)), []).append((rid, seq))
+    return sorted(buckets.items())
+
+
+def _copy_to_host(t: torch.Tensor):
+    """Start copying ``t`` to the host; returns (host tensor, its ready
+    event or None), so the host can collect it while the device runs on."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def _pipelined(batches, dispatch, collect) -> None:
+    """``dispatch`` each batch (a tuple of its arguments) and ``collect``
+    what the one before it queued, so the host collects a batch while the
+    device runs the next."""
+    pending = None
+    for batch in batches:
+        nxt = dispatch(*batch)
+        if pending is not None:
+            collect(pending)
+        pending = nxt
+    if pending is not None:
+        collect(pending)
+
+
+def _collect_padded(chunk, out, results, to_host) -> None:
+    """The padded hits of one batch (``unpack_hits``'s dict) into
+    ``results``; flagged reads are counted and queued in ``to_host``."""
+    rows = np.stack([out[f] for f in HIT_FIELDS], axis=-1)  # (R, max_hits, 8)
+    for i, (rid, seq) in enumerate(chunk):
+        if out["overflow"][i]:
+            DEVICE_MAP_STATS["overflow_reads"] += 1
+            to_host.append((rid, seq))
+            continue
+        results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
+
+
+def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits):
+    """The v1 pass of ``map_all_with_device``, for an index that the v2
+    tables refuse: the join tables and the index's five arrays go to
+    ``dev`` once, each batch of a length bucket crosses as (R, L) uint8
+    codes in one copy and comes back as one packed tensor; the reads it
+    flags are mapped on the host at the end, in one call."""
+    E = int(index.offsets[-1])
+    if E >= 2**31:
+        raise ValueError(f"the v1 join addresses entries with int32 offsets: {E} entries")
+    bitmap, rank, rounds = build_join_tables(index.hashes, device=dev)
+    idx_dev = (u32_tensor(index.hashes, dev),
+               torch.from_numpy(index.offsets.astype(np.int32)).to(dev),
+               torch.from_numpy(index.entry_unitig).to(dev),
+               torch.from_numpy(index.entry_pos).to(dev),
+               torch.from_numpy(index.entry_strand).to(dev))
+    pin = dev.type == "cuda"
+    to_host: list[tuple[int, bytes]] = []
+
+    def dispatch(chunk, L):
+        codes = torch.full((batch_reads, L), 4, dtype=torch.uint8, pin_memory=pin)
+        lens = torch.zeros(batch_reads, dtype=torch.int32, pin_memory=pin)
+        codes_np, lens_np = codes.numpy(), lens.numpy()
+        for i, (_rid, seq) in enumerate(chunk):
+            c = encode_2bit(seq)
+            codes_np[i, : len(c)] = c
+            lens_np[i] = len(c)
+        _sel, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
+        out = map_reads_device(
+            codes.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), *idx_dev,
+            bitmap, rank, k=cfg.k, w=cfg.w, bandwidth=cfg.bandwidth,
+            min_anchor_count=cfg.min_anchor_count, min_chain_score=cfg.min_chain_score,
+            max_pos=pos_L, max_per_hit=max_per_hit, max_hits=max_hits, join_rounds=rounds,
+            trim=trim_L)
+        return chunk, *_copy_to_host(pack_hits(out))
+
+    def collect(pending):
+        chunk, flat, ready = pending
+        if ready is not None:
+            ready.synchronize()
+        _collect_padded(chunk, unpack_hits(flat, max_hits), results, to_host)
+
+    _pipelined(((members[s : s + batch_reads], L)
+                for L, members in _length_buckets(items)
+                for s in range(0, len(members), batch_reads)), dispatch, collect)
+    _map_on_host(index, to_host, cfg, results)
+
+
 def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
             max_hits, hit_budget):
     """The v2 pass of ``map_all_with_device``: fills ``results``; the reads
@@ -165,10 +261,6 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     hit_budget = min(hit_budget, batch_reads * max_hits)
     tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
                    min_chain_score=cfg.min_chain_score, max_hits=max_hits)
-
-    buckets: dict[int, list[tuple[int, bytes]]] = {}
-    for rid, seq in items:
-        buckets.setdefault(device_bucket_len(len(seq)), []).append((rid, seq))
 
     dev_cache = _batch_cache(reads, dev)
     cache_cap = int(os.environ.get("MS_TPU_DEV_CACHE_MB", "2048")) << 20
@@ -226,14 +318,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                                             **tail_kw)
         # start the copy back now, so the host collects this batch while
         # the device runs the next one
-        ready = None
-        if dev.type == "cuda":
-            host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-            host.copy_(flat, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            flat = host
-        return chunk, flat, ready, anchors, trim_L, mph
+        return chunk, *_copy_to_host(flat), anchors, trim_L, mph
 
     # second-tier expansion cap (0 disables): reads whose violation a
     # wider cap or wider widths fix go through the device again
@@ -257,8 +342,9 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
             # over the dense budget: pull the padded tail instead (cap
             # violations fold into its overflow -> host)
             DEVICE_MAP_STATS["dense_repulls"] += 1
-            collect_padded(chunk, anchors_to_hits_device_packed(
-                *anchors, trim=trim, per_hit_cap=mph, **tail_kw))
+            _collect_padded(chunk, unpack_hits(anchors_to_hits_device_packed(
+                *anchors, trim=trim, per_hit_cap=mph, **tail_kw), max_hits),
+                results, to_host)
             return
         dense_np = flat_np[3 * R :].reshape(hit_budget, 9)[:, 1:]  # drop flat_slot
         offs = np.zeros(len(counts) + 1, dtype=np.int64)
@@ -281,28 +367,11 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                 continue
             results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
 
-    def collect_padded(chunk, out):
-        out = unpack_hits(out, max_hits)
-        rows = np.stack([out[f] for f in HIT_FIELDS], axis=-1)  # (R, max_hits, 8)
-        for i, (rid, seq) in enumerate(chunk):
-            if out["overflow"][i]:
-                DEVICE_MAP_STATS["overflow_reads"] += 1
-                to_host.append((rid, seq))
-                continue
-            results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
-
     def run(batches, **kw):
-        pending = None
-        for chunk, L, s in batches:
-            nxt = dispatch(chunk, L, s, **kw)
-            if pending is not None:
-                collect(pending)
-            pending = nxt
-        if pending is not None:
-            collect(pending)
+        _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect)
 
     run((members[s : s + batch_reads], L, s)
-        for L, members in sorted(buckets.items())
+        for L, members in _length_buckets(items)
         for s in range(0, len(members), batch_reads))
     # tier 2 over the deferred reads: the wider cap and twice the widths;
     # its own violations go to the host (mph == tier2_mph there)

@@ -292,3 +292,79 @@ def test_port_device_mapping_on_card_matches_cpu(cuda):
         assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, device=False,
                                      torch_device=cuda)
     assert stats["tier2_reads"] > 0
+
+
+def v1_inputs(device):
+    """A simulated index and a batch of noisy reads, as the v1 join's
+    arguments on ``device``: (codes, lens, index arrays, bitmap, rank,
+    rounds)."""
+    from muchsalsa_tpu_torch.config import MapperConfig
+    from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, SequenceStore
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, simulate
+    from muchsalsa_tpu_torch.utils.seq import encode_2bit
+
+    sim = simulate(np.random.default_rng(44), genome_length=60_000, coverage=6.0,
+                   read_length=9_000)
+    unitigs = SequenceStore()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    rng = np.random.default_rng(3)
+    seqs = [add_noise(rng, seq, 0.08) for _name, seq in sim.read_records()][:64]
+    index = MinimizerIndex.build(unitigs, MapperConfig())
+    codes = np.full((len(seqs), 10_240), 4, dtype=np.uint8)
+    lens = np.zeros(len(seqs), dtype=np.int32)
+    for i, s in enumerate(seqs):
+        codes[i, : len(s)] = encode_2bit(s)
+        lens[i] = len(s)
+    arrays = (mpt.u32_tensor(index.hashes, device),
+              torch.from_numpy(index.offsets.astype(np.int32)).to(device),
+              *(torch.from_numpy(a).to(device)
+                for a in (index.entry_unitig, index.entry_pos, index.entry_strand)))
+    return (torch.from_numpy(codes).to(device), torch.from_numpy(lens).to(device), arrays,
+            *mpt.build_join_tables(index.hashes, device=device))
+
+
+@pytest.mark.parametrize("mph", (2, 4))
+def test_port_v1_join_on_card_matches_cpu(cuda, mph):
+    """The v1 join on CUDA tensors gives the CPU tensors' fields."""
+    from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+
+    on_card, on_cpu = (mpt.map_reads_device(codes, lens, *arrays, bitmap, rank, max_pos=2048,
+                                            max_per_hit=mph, trim=2048, join_rounds=rounds)
+                       for codes, lens, arrays, bitmap, rank, rounds
+                       in (v1_inputs(cuda), v1_inputs(torch.device("cpu"))))
+    assert set(on_card) == set(on_cpu)
+    for key, want in on_cpu.items():
+        assert torch.equal(on_card[key].cpu(), want), key
+    assert int(on_cpu["n_hits"].sum()) > 64
+
+
+def test_port_v1_mapping_on_card_matches_host(cuda, monkeypatch):
+    """map_all on the card with the v2 tables refused: the v1 join maps the
+    reads, identical to host mapping with refinement off and on."""
+    from muchsalsa_tpu_torch.config import MapperConfig
+    from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+    from muchsalsa_tpu_torch.pipeline.mapper_torch import SequenceStore
+    from muchsalsa_tpu_torch.testing.simulate import add_noise, simulate
+
+    monkeypatch.setattr(mt, "build_device_tables", lambda *a, **k: None)
+    sim = simulate(np.random.default_rng(45), genome_length=60_000, coverage=8.0,
+                   read_length=9_000)
+    unitigs, reads = SequenceStore(), SequenceStore()
+    for name, seq in sim.unitig_records():
+        unitigs.add(name, seq)
+    rng = np.random.default_rng(1)
+    for name, seq in sim.read_records():
+        reads.add(name, add_noise(rng, seq, 0.08))
+    for refine in (False, True):
+        cfg = dataclasses.replace(MapperConfig(), refine=refine)
+        index = mt.MinimizerIndex.build(unitigs, cfg)
+        before = myers_edit_distance.launches
+        on_card = mt.map_all(index, reads, cfg, unitigs=unitigs, device=True, torch_device=cuda)
+        stats = dict(mt.DEVICE_MAP_STATS)
+        assert stats["v2"] is False and stats["device"].startswith(cuda.type)
+        assert stats["overflow_reads"] < stats["total_reads"] == len(reads)
+        assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, device=False,
+                                     torch_device=cuda)
+        assert (myers_edit_distance.launches > before) == refine
