@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's core assembler, its mapper (device mapping
-by the v2 and the v1 join, and refinement) and its full pipeline once on one
-NVIDIA GPU.
+by the v2 and the v1 join, and refinement), its full pipeline, and its
+sharded and multi-process paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -43,8 +43,8 @@ exits non-zero without its last line:
              lengths, at M in {31, 32, 33, 200, 1000, 4096} x P in {1, 33,
              4096}, and the exact kernel alone at M = 9000 (past its register
              classes) x P in {1, 33}; bit-equal required; median CUDA-event
-             times at the largest P (the plain versions once at M >= 4096,
-             where one call takes seconds);
+             times at the largest P (at M >= 4096, where one plain call takes
+             seconds, the comparison's own plain call is the one timed);
 7. refine  — phase 4's unitigs and reads with 8 % nanopore-style noise,
              mapped by the port's map_all with cfg.refine on the card (the
              refinement of `full`'s map stages), then refine_mappings'
@@ -83,7 +83,22 @@ exits non-zero without its last line:
              and fewer overflow reads than reads; the host index and
              join-table builds, the bytes of the index and the bitmap on the
              card, peak CUDA memory, and the median CUDA-event ms of the
-             join's four parts on one full batch.
+             join's four parts on one full batch;
+11. multi  — two shards and two processes on the one card, no dimension
+             cut: with ``parallel.mesh.visible_devices`` listing cuda:0
+             twice, ``sharded_chain_dp`` on phase 4's largest batch and
+             ``sharded_myers`` on phase 7's regions bit-equal to one launch
+             of each kernel (two launches each, the chain stats equal to a
+             host sum), phase 4's core byte-identical to phase 4's port run
+             (``mesh_devices`` 2, two ``chain_dp`` launches a bucket) and
+             phase 8's reads mapped on the card identical to host mapping
+             (meshed, no tier 2); then ``scripts/torch_distributed_core.py``
+             in two gloo processes on the card, each writing phase 4's port
+             output, and ``scripts/torch_distributed_scrub.py`` on phase 8's
+             reads and mapping (subsets of 2,000 reads, at least one on the
+             card) byte-identical to one in-process ``scrub_reads`` on the
+             card; each wall beside its unsharded or single-process
+             counterpart.
 
 Then the kernel summary line (each kernel's launches on its path, error,
 kernel and plain times, bound and what bounds it, and the library yardstick:
@@ -98,9 +113,13 @@ comparison do not count.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import json
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -303,9 +322,13 @@ def compare_align(name, kernel, plain, args, kw, timed: bool, int32_ops_per_s: f
                   plain_reps: int = 3) -> dict:
     """Kernel vs plain version on the same CUDA tensors, with the kernel's
     bound on them; raises unless bit-equal.  The comparison's own call warms
-    the plain version up."""
+    the plain version up, or, with ``plain_reps`` 1 (shapes where one plain
+    call takes seconds), is the one plain call timed."""
     got = kernel(*args, **kw)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain(*args, **kw)
+    stop.record()
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if not torch.equal(got, want):
@@ -318,7 +341,8 @@ def compare_align(name, kernel, plain, args, kw, timed: bool, int32_ops_per_s: f
     row["bound_ms"], row["bound_by"] = align_bound(name, args, kw, int32_ops_per_s)
     if timed:
         row["ms"] = median_ms(lambda: kernel(*args, **kw), reps=10)
-        row["plain_ms"] = median_ms(lambda: plain(*args, **kw), reps=plain_reps, warmup=0)
+        row["plain_ms"] = (start.elapsed_time(stop) if plain_reps == 1 else
+                           median_ms(lambda: plain(*args, **kw), reps=plain_reps, warmup=0))
     return row
 
 
@@ -345,7 +369,7 @@ def phase_align_kernels(card: str, device, int32_ops_per_s: float) -> dict[str, 
             pairs = random_pairs(np.random.default_rng(M * 10_000 + P), P, M)
             args = tuple(x.to(device) for x in pack_problems(pairs))
             for name, kernel, plain, kw in cases:
-                # at M >= 4096 one plain call takes seconds: time it once
+                # at M >= 4096 one plain call takes seconds: time the check's own
                 row = compare_align(name, kernel, plain, args, kw, timed=P == max(sizes),
                                     int32_ops_per_s=int32_ops_per_s,
                                     plain_reps=1 if M >= 4096 else 3)
@@ -360,7 +384,8 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_pe
     engine with each of its kernels, a sample against the host oracle, and
     every kernel against its plain version on the arrays map_all packed.
     Returns (launches of each kernel on its path, timing rows, the mapping
-    data: unitigs, noisy reads, config, index and PAF names)."""
+    data: unitigs, noisy reads, config, index and PAF names, and a host copy
+    of the packed regions)."""
     from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
     from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
@@ -462,7 +487,8 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_pe
         align_err[name] = max(align_err[name], row["max_abs_err"])
         slice_rows[name] = row
         emit("refine_kernels", card=card, **row)
-    return refine_launches, slice_rows, (unitigs, reads, cfg, index, names)
+    return (refine_launches, slice_rows, (unitigs, reads, cfg, index, names),
+            [x.cpu() for x in packed])
 
 
 def repeat_set():
@@ -531,10 +557,12 @@ def time_stages(reads, index, cfg, device) -> tuple[int, dict]:
     return L, {name: median_ms(fn, reps=10) for name, fn in stages.items()}
 
 
-def phase_device_map(card: str, data, device) -> None:
+def phase_device_map(card: str, data, device) -> tuple[list[str], dict, dict]:
     """Phase 8: the port's map_all(device=True) on the card against its host
     map_all, with refinement off and on; a second call served by the batch
-    cache; a repeat-rich set through tier 2; the six stages timed."""
+    cache; a repeat-rich set through tier 2; the six stages timed.  Returns
+    the host mapping's PAF lines, the cached call's ``DEVICE_MAP_STATS`` and
+    the walls of the host and device calls."""
     from muchsalsa_tpu_torch.device import resolve_device
     from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
     from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
@@ -593,6 +621,7 @@ def phase_device_map(card: str, data, device) -> None:
          cached_batches=len(cache), cuda_peak_bytes=peak, repeat_set_stats=rep_stats,
          repeat_set_lines=len(got), stage_bucket=bucket, stage_ms=stage_ms,
          identical=True)
+    return host, stats, {"host_s": host_s, **walls}
 
 
 JOIN_V1_GENOME = 140_000_000  # the JAX package's 140 Mb tier: v2 tables refused
@@ -859,6 +888,200 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
     return dev["launches"]["chain_dp"], dev["launches"]["myers_full"]
 
 
+def run_group(script: str, n: int, args_of, timeout: float) -> float:
+    """``n`` processes of ``scripts/{script}`` in one gloo process group on
+    the card (``--device cuda``); ``args_of(pid)`` gives a process's
+    arguments after the coordinator.  Returns the wall until the last one
+    exited; raises unless each exits 0, and kills any left at the end."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "scripts" / script), str(pid), str(n), coordinator,
+         *map(str, args_of(pid)), "--device", "cuda"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{script} process {pid} exited {p.returncode}:\n{so}\n"
+                                 f"{se[-3000:]}")
+    return wall
+
+
+def phase_multi(card: str, work: Path, core_args, core_wall: float, dp_batch, regions,
+                mapping) -> None:
+    """Phase 11: two shards, then two processes, on the one card.
+
+    a. ``visible_devices`` lists cuda:0 twice: ``sharded_chain_dp`` on phase
+       4's largest packed batch and ``sharded_myers`` on phase 7's regions
+       (one empty problem appended where P is odd) against one launch of
+       each kernel; phase 4's core and phase 8's device mapping through the
+       port's entry points with that mesh.
+    b. ``scripts/torch_distributed_core.py`` and ``torch_distributed_scrub.py``
+       in two processes of a gloo group on the card, against phase 4's port
+       run and an in-process ``scrub_reads`` on the card of phase 8's reads
+       and mapping (subsets of 2,000 reads, at least one on the card).
+    Walls stand beside their unsharded or single-process counterparts; they
+    are two shards or two processes sharing one card, not a scaling
+    measurement."""
+    from muchsalsa_tpu_torch.assemble.driver import assemble
+    from muchsalsa_tpu_torch.config import MapperConfig, ScrubConfig
+    from muchsalsa_tpu_torch.io.fasta import SequenceStore
+    from muchsalsa_tpu_torch.io.fasta import write_fasta as port_write_fasta
+    from muchsalsa_tpu_torch.ops.chain_scan import chain_dp
+    from muchsalsa_tpu_torch.ops.myers_torch import myers_edit_distance
+    from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
+    from muchsalsa_tpu_torch.parallel.sharded import sharded_chain_dp, sharded_myers
+    from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
+    from muchsalsa_tpu_torch.pipeline.scrubber import SCRUB_DEVICE_STATS, scrub_reads
+
+    cuda0 = torch.device("cuda", 0)
+    two = mesh_mod.make_mesh(devices=[cuda0, cuda0])
+    row: dict = {"card": card, "label": "2 shards / 2 processes on one card"}
+
+    # a. the chaining kernel, two shards against one launch
+    packed, K, wiggle_room = dp_batch
+    on_card = [x.cuda() for x in packed]
+    ref_s, ref_b = chain_dp(*on_card, K, wiggle_room)
+    before = chain_dp.launches
+    s, b, stats = sharded_chain_dp(*packed, K, wiggle_room, two)
+    torch.cuda.synchronize()
+    launched = chain_dp.launches - before
+    sizes = (packed[2][1:] - packed[2][:-1]).long()
+    best = torch.where(torch.arange(K) < sizes[:, None], ref_s.cpu(), 0.0).amax(1)
+    host_stats = [float((sizes > 0).sum()), float(best.sum())]
+    if not (torch.equal(s, ref_s) and torch.equal(b, ref_b)) or launched != 2:
+        raise AssertionError(f"sharded_chain_dp: equal={torch.equal(s, ref_s)}, "
+                             f"{torch.equal(b, ref_b)}, launches {launched}")
+    if float(stats[0]) != host_stats[0] or abs(float(stats[1]) - host_stats[1]) > (
+            1e-12 * abs(host_stats[1])):
+        raise AssertionError(f"sharded_chain_dp stats {stats.tolist()}, host sum {host_stats}")
+    row["chain_dp"] = {
+        "B": sizes.numel(), "K": K, "N": packed[0].shape[1], "launches": launched,
+        "stats": stats.tolist(), "host_stats": host_stats,
+        "sharded_ms": median_ms(lambda: sharded_chain_dp(*on_card, K, wiggle_room, two), 10),
+        "unsharded_ms": median_ms(lambda: chain_dp(*on_card, K, wiggle_room), 10)}
+    del on_card, ref_s, ref_b, s, b
+
+    # a. the exact Myers kernel, two shards against one launch
+    P = regions[0].shape[0]
+    pad = (-P) % two.size
+    q, ql, t, tl = regions
+    args = [torch.cat([x, torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype)]).cuda()
+            for x, fill in ((q, 5), (ql, 0), (t, 4), (tl, 0))]
+    ref_d = myers_edit_distance(*args)
+    before = myers_edit_distance.launches
+    d, total = sharded_myers(*args, two)
+    torch.cuda.synchronize()
+    launched = myers_edit_distance.launches - before
+    exact = int(ref_d.long().sum())
+    # the total is float32, as the JAX step's psum: exact to 2^24, then rounded
+    if not torch.equal(d, ref_d) or launched != 2 or abs(float(total) - exact) > 1e-6 * exact:
+        raise AssertionError(f"sharded_myers: equal={torch.equal(d, ref_d)}, launches "
+                             f"{launched}, total {float(total)} against {exact}")
+    row["myers_full"] = {
+        "P": P, "padded_P": P + pad, "launches": launched, "total": float(total),
+        "exact_total": exact,
+        "sharded_ms": median_ms(lambda: sharded_myers(*args, two), 10),
+        "unsharded_ms": median_ms(lambda: myers_edit_distance(*args), 10)}
+    del args, ref_d, d
+
+    # a. the core and device mapping through the port's entry points
+    out2 = work / "ecoli" / "mesh2"
+    unitigs, reads, cfg, index, names, host_lines, map_stats, map_walls = mapping
+    plain = dataclasses.replace(cfg, refine=False)
+    saved = mesh_mod.visible_devices
+    mesh_mod.visible_devices = lambda: [cuda0, cuda0]
+    try:
+        chain_dp.launches = 0
+        t0 = time.perf_counter()
+        meshed = assemble(*core_args, out2, device="cuda")
+        meshed_wall = time.perf_counter() - t0
+        core_launches = chain_dp.launches
+        t0 = time.perf_counter()
+        mapped = mt.map_all(index, reads, plain, device=True, torch_device="cuda", **names)
+        map_wall = time.perf_counter() - t0
+        stats2 = dict(mt.DEVICE_MAP_STATS)
+    finally:
+        mesh_mod.visible_devices = saved
+    assert_no_reference("the port's meshed core and mapping")
+    port_out = work / "ecoli" / "port"
+    same = {n: (out2 / n).read_bytes() == (port_out / n).read_bytes() for n in OUTPUTS}
+    counters = meshed["timer"].counters
+    buckets = sum(1 for k in counters if k.startswith("chain_batch_k"))
+    if not all(same.values()) or counters["mesh_devices"] != 2 or (
+            core_launches != 2 * buckets or buckets == 0):
+        raise AssertionError(f"the 2-shard core: identical {same}, mesh_devices "
+                             f"{counters['mesh_devices']}, chain_dp launches {core_launches} "
+                             f"over {buckets} buckets")
+    if mapped != host_lines or not (stats2["meshed"] and stats2["n_devices"] == 2
+                                    and stats2["tier2_reads"] == 0 and stats2["v2"]):
+        raise AssertionError(f"the 2-shard mapping: identical {mapped == host_lines}, {stats2}")
+    row["core"] = {"wall_s": meshed_wall, "unsharded_wall_s": core_wall, "identical": same,
+                   "mesh_devices": counters["mesh_devices"], "chain_dp_launches": core_launches,
+                   "chain_batches": {k: v for k, v in counters.items()
+                                     if k.startswith("chain_batch_k")}}
+    row["device_map"] = {
+        "wall_s": map_wall, "unsharded_wall_s": map_walls["cached"],
+        "host_wall_s": map_walls["host_s"], "lines": len(mapped), "stats": stats2,
+        "overflow_share": stats2["overflow_reads"] / stats2["total_reads"],
+        "unsharded_overflow_share": map_stats["overflow_reads"] / map_stats["total_reads"]}
+
+    # b. the core in two processes
+    paf, unitigs_fa, reads_fa = core_args
+    procs_wall = run_group("torch_distributed_core.py", 2,
+                           lambda pid: (paf, unitigs_fa, reads_fa, work / "ecoli" / f"proc{pid}"),
+                           timeout=300)
+    same = {f"p{pid}/{n}": (work / "ecoli" / f"proc{pid}" / n).read_bytes()
+            == (port_out / n).read_bytes() for pid in range(2) for n in OUTPUTS}
+    if not all(same.values()):
+        raise AssertionError(f"the 2-process core differs from phase 4's port run: {same}")
+    row["core_2_processes"] = {"wall_s": procs_wall, "single_process_wall_s": core_wall,
+                               "identical": same}
+
+    # b. the scrub in two processes, against one in-process scrub on the card,
+    # of what `full` scrubs: the long reads and their mapping (phase 8's);
+    # the guard declines every subset of phase 4's own PAF (multiplicity ~15)
+    scrub_reads_fa, scrub_paf = work / "scrub_reads.fa", work / "scrub.paf"
+    port_write_fasta(scrub_reads_fa, ((names["read_names"](rid), seq)
+                                      for rid, seq in reads.items()))
+    scrub_paf.write_text("\n".join(host_lines) + "\n")
+    store = SequenceStore()
+    store.load(scrub_reads_fa)
+    scfg = ScrubConfig(subset_size=2_000)
+    t0 = time.perf_counter()
+    single = scrub_reads(host_lines, store, scfg, MapperConfig(), device="cuda")
+    scrub_wall = time.perf_counter() - t0
+    scrub_stats = dict(SCRUB_DEVICE_STATS)
+    expected, got = work / "scrub_single.fa", work / "scrub_2p.fa"
+    port_write_fasta(expected, single)
+    procs_wall = run_group("torch_distributed_scrub.py", 2,
+                           lambda pid: (scrub_reads_fa, scrub_paf, got, scfg.subset_size),
+                           timeout=300)
+    if got.read_bytes() != expected.read_bytes() or len(scrub_stats["subsets"]) < 2 or (
+            scrub_stats["on_device"] == 0):
+        raise AssertionError(f"the 2-process scrub: identical "
+                             f"{got.read_bytes() == expected.read_bytes()}, "
+                             f"{len(scrub_stats['subsets'])} subsets, "
+                             f"{scrub_stats['on_device']} on the card")
+    row["scrub_2_processes"] = {
+        "wall_s": procs_wall, "single_process_wall_s": scrub_wall, "records": len(single),
+        "subset_size": scfg.subset_size, "subsets": len(scrub_stats["subsets"]),
+        "subsets_on_card": scrub_stats["on_device"], "declined": scrub_stats["declined"],
+        "identical": True}
+    emit("multi", **row)
+
+
 def with_device_config(**device_fields):
     from muchsalsa_tpu_torch.config import Config
 
@@ -934,81 +1157,82 @@ def main() -> int:
 
     GOLDEN = golden_hashes()
 
-    with tempfile.TemporaryDirectory(prefix="ms_chip_smoke_") as td:
-        work = Path(td)
+    # phase 11 reads phase 4's inputs and outputs: the directory lasts the run
+    work = Path(tempfile.mkdtemp(prefix="ms_chip_smoke_"))
+    atexit.register(shutil.rmtree, work, ignore_errors=True)
 
-        # --- 3. golden, every bucket through the kernel
-        sim = simulate(np.random.default_rng(20260817), genome_length=60_000,
-                       unitig_length=1_100, unitig_gap=300, read_length=6_000,
-                       coverage=9.0, both_strands=True)
-        paths = write_simulation(sim, work / "golden" / "data")
-        chain_dp.launches = 0
-        assemble(paths["paf"], paths["unitigs"], paths["reads"], work / "golden" / "out",
-                 with_device_config(min_device_batch=1), device="cuda")
-        golden_launches = chain_dp.launches
-        got = {n: hashlib.sha256((work / "golden" / "out" / n).read_bytes()).hexdigest()
-               for n in GOLDEN}
-        if got != GOLDEN:
-            raise AssertionError(f"golden mismatch on the card: {got}")
-        if golden_launches == 0:
-            raise AssertionError("golden run never launched chain_dp")
-        emit("golden", match=True, chain_dp_launches=golden_launches)
+    # --- 3. golden, every bucket through the kernel
+    sim = simulate(np.random.default_rng(20260817), genome_length=60_000,
+                   unitig_length=1_100, unitig_gap=300, read_length=6_000,
+                   coverage=9.0, both_strands=True)
+    paths = write_simulation(sim, work / "golden" / "data")
+    chain_dp.launches = 0
+    assemble(paths["paf"], paths["unitigs"], paths["reads"], work / "golden" / "out",
+             with_device_config(min_device_batch=1), device="cuda")
+    golden_launches = chain_dp.launches
+    got = {n: hashlib.sha256((work / "golden" / "out" / n).read_bytes()).hexdigest()
+           for n in GOLDEN}
+    if got != GOLDEN:
+        raise AssertionError(f"golden mismatch on the card: {got}")
+    if golden_launches == 0:
+        raise AssertionError("golden run never launched chain_dp")
+    emit("golden", match=True, chain_dp_launches=golden_launches)
 
-        # --- 4. E. coli-scale core, port on the card vs the host oracle
-        t0 = time.perf_counter()
-        sim = simulate(np.random.default_rng(20260819), genome_length=4_600_000,
-                       coverage=15.0, read_length=9_000, unitig_length=1_000,
-                       unitig_gap=300)
-        paths = write_simulation(sim, work / "ecoli" / "data")
-        n_reads = sum(1 for _ in sim.read_records())
-        sim_s = time.perf_counter() - t0
-        args = (paths["paf"], paths["unitigs"], paths["reads"])
+    # --- 4. E. coli-scale core, port on the card vs the host oracle
+    t0 = time.perf_counter()
+    sim = simulate(np.random.default_rng(20260819), genome_length=4_600_000,
+                   coverage=15.0, read_length=9_000, unitig_length=1_000,
+                   unitig_gap=300)
+    paths = write_simulation(sim, work / "ecoli" / "data")
+    n_reads = sum(1 for _ in sim.read_records())
+    sim_s = time.perf_counter() - t0
+    args = (paths["paf"], paths["unitigs"], paths["reads"])
 
-        # keep a host copy of every packed batch the core hands chain_dp
-        core_batches = []
+    # keep a host copy of every packed batch the core hands chain_dp
+    core_batches = []
 
-        def keep_batch(fields, flags, offsets, K, wiggle_room):
-            core_batches.append(([x.cpu() for x in (fields, flags, offsets)], K, wiggle_room))
-            return chain_dp(fields, flags, offsets, K, wiggle_room)
+    def keep_batch(fields, flags, offsets, K, wiggle_room):
+        core_batches.append(([x.cpu() for x in (fields, flags, offsets)], K, wiggle_room))
+        return chain_dp(fields, flags, offsets, K, wiggle_room)
 
-        chaining_torch.chain_dp = keep_batch
-        chain_dp.launches = chain_scan.launches = 0
-        t0 = time.perf_counter()
-        port = assemble(*args, work / "ecoli" / "port", device="cuda")
-        port_wall = time.perf_counter() - t0
-        chaining_torch.chain_dp = chain_dp
-        core_launches = chain_dp.launches
-        core_scan_launches = chain_scan.launches
-        assert_no_reference("the port's assembly")
-        if core_launches == 0:
-            raise AssertionError("the E. coli-scale core never launched chain_dp")
+    chaining_torch.chain_dp = keep_batch
+    chain_dp.launches = chain_scan.launches = 0
+    t0 = time.perf_counter()
+    port = assemble(*args, work / "ecoli" / "port", device="cuda")
+    port_wall = time.perf_counter() - t0
+    chaining_torch.chain_dp = chain_dp
+    core_launches = chain_dp.launches
+    core_scan_launches = chain_scan.launches
+    assert_no_reference("the port's assembly")
+    if core_launches == 0:
+        raise AssertionError("the E. coli-scale core never launched chain_dp")
 
-        t0 = time.perf_counter()
-        host = assemble(*args, work / "ecoli" / "host", with_device_config(use_device=False),
-                        device="cuda")
-        host_wall = time.perf_counter() - t0
-        if (chain_dp.launches != core_launches or chain_scan.launches != core_scan_launches
-                or host["timer"].counters["chaining_on_device"]):
-            raise AssertionError("the host oracle's run reached the card")
-        identical = {n: (work / "ecoli" / "port" / n).read_bytes()
-                     == (work / "ecoli" / "host" / n).read_bytes() for n in OUTPUTS}
-        counters = port["timer"].counters
-        batches = {int(k.removeprefix("chain_batch_k")): v
-                   for k, v in counters.items() if k.startswith("chain_batch_k")}
-        emit("core", card=card, genome_mb=4.6, coverage=15.0, reads=n_reads,
-             simulate_s=sim_s, port_wall_s=port_wall, host_wall_s=host_wall,
-             port_stages=port["timer"].stages, host_stages=host["timer"].stages,
-             chain_device_problems=counters["chain_device_problems"],
-             chain_host_problems=counters["chain_host_problems"],
-             chain_batches=batches, chain_dp_launches=core_launches,
-             chain_scan_launches=core_scan_launches,
-             cuda_peak_bytes=port["memory"]["device_peak_bytes_allocated"],
-             components=port["components"], paths=port["paths"],
-             identical=identical)
-        if not all(identical.values()):
-            raise AssertionError(f"port output differs from the host oracle: {identical}")
-        if port["paths"] < 1 or not (work / "ecoli" / "port" / OUTPUTS[0]).stat().st_size:
-            raise AssertionError("the E. coli-scale core assembled no contig")
+    t0 = time.perf_counter()
+    host = assemble(*args, work / "ecoli" / "host", with_device_config(use_device=False),
+                    device="cuda")
+    host_wall = time.perf_counter() - t0
+    if (chain_dp.launches != core_launches or chain_scan.launches != core_scan_launches
+            or host["timer"].counters["chaining_on_device"]):
+        raise AssertionError("the host oracle's run reached the card")
+    identical = {n: (work / "ecoli" / "port" / n).read_bytes()
+                 == (work / "ecoli" / "host" / n).read_bytes() for n in OUTPUTS}
+    counters = port["timer"].counters
+    batches = {int(k.removeprefix("chain_batch_k")): v
+               for k, v in counters.items() if k.startswith("chain_batch_k")}
+    emit("core", card=card, genome_mb=4.6, coverage=15.0, reads=n_reads,
+         simulate_s=sim_s, port_wall_s=port_wall, host_wall_s=host_wall,
+         port_stages=port["timer"].stages, host_stages=host["timer"].stages,
+         chain_device_problems=counters["chain_device_problems"],
+         chain_host_problems=counters["chain_host_problems"],
+         chain_batches=batches, chain_dp_launches=core_launches,
+         chain_scan_launches=core_scan_launches,
+         cuda_peak_bytes=port["memory"]["device_peak_bytes_allocated"],
+         components=port["components"], paths=port["paths"],
+         identical=identical)
+    if not all(identical.values()):
+        raise AssertionError(f"port output differs from the host oracle: {identical}")
+    if port["paths"] < 1 or not (work / "ecoli" / "port" / OUTPUTS[0]).stat().st_size:
+        raise AssertionError("the E. coli-scale core assembled no contig")
 
     # --- 5. both chaining kernels vs their plain versions on the core's own batches
     main_rows = {"chain_dp": [], "chain_scan": []}
@@ -1025,25 +1249,32 @@ def main() -> int:
             max_err[row["kernel"]] = max(max_err[row["kernel"]], row["max_abs_err"])
             main_rows[row["kernel"]].append(row)
             emit("shapes", card=card, **row)
+    # phase 11 shards the largest batch over two shards
+    dp_batch = max(core_batches, key=lambda b: b[0][2].shape[0])
     del core_batches
 
     # --- 6. edit-distance kernels vs their plain versions
     align_err = phase_align_kernels(card, torch.device("cuda"), int32_ops_per_s)
 
     # --- 7. refinement on the card, through the port's entry points
-    refine_launches, slice_rows, map_data = phase_refine(
+    refine_launches, slice_rows, map_data, regions = phase_refine(
         card, sim, torch.device("cuda"), align_err, int32_ops_per_s)
 
     # --- 8. device mapping on the card, through the port's map_all
-    phase_device_map(card, map_data, "cuda")
+    host_lines, map_stats, map_walls = phase_device_map(card, map_data, "cuda")
 
     # --- 9. raw reads -> assembly, mapping on the card
     with tempfile.TemporaryDirectory(prefix="ms_chip_smoke_full_") as td:
         phase_full(card, Path(td), sim, map_data[1], "cuda")
-    del sim, map_data
+    del sim
 
     # --- 10. the v1 join on an index that the v2 tables refuse
     phase_join_v1(card, "cuda")
+
+    # --- 11. two shards and two processes on the one card
+    phase_multi(card, work, args, port_wall, dp_batch, regions,
+                (*map_data, host_lines, map_stats, map_walls))
+    del map_data
 
     assert_no_reference("chip_smoke")
     # no single PyTorch call computes any of the five functions: no yardstick;

@@ -4,11 +4,15 @@ Port of ``muchsalsa_tpu/assemble/driver.py::assemble``.  The phases, their
 order, and the ``StageTimer`` stage names are the JAX driver's; phase ②
 (edges) and phase ③ (chaining) run on ``device`` through
 ``matching/edges_torch.py`` and ``ops/chaining_torch.py`` whenever
-``config.device.use_device`` is set.  With it unset, both run the host
-oracle (``matching.edges.build_edges`` and ``host.chaining_phase``) and
-nothing reaches ``device``: ``chip_smoke.py`` holds the port against that
-run.  Every other phase is host code, the port's own copy of the JAX
-package's modules (``assemble/host.py`` holds the driver's host half).
+``config.device.use_device`` is set, sharded over every visible device of
+``device``'s type where there are several (``_driver_mesh``).  With it
+unset, both run the host oracle (``matching.edges.build_edges`` and
+``host.chaining_phase``) and nothing reaches ``device``: ``chip_smoke.py``
+holds the port against that run.  Every other phase is host code, the
+port's own copy of the JAX package's modules (``assemble/host.py`` holds
+the driver's host half).  Across processes (``process_count > 1``) every
+process replays the graph phases and assembles its round-robin share of
+the components (``host._run_distributed_assembly``).
 
 There is no size gate: the JAX package's ``chain_device_min_problems`` and
 ``edges_device_min_rows`` amortise a remote compiler and a slow link, and
@@ -28,7 +32,8 @@ from muchsalsa_tpu_torch.assemble import contraction as ctr
 from muchsalsa_tpu_torch.assemble import spanning
 from muchsalsa_tpu_torch.assemble.consensus import ConsensusContext, assemble_path
 from muchsalsa_tpu_torch.assemble.host import (
-    _assembly_worker_count, _run_parallel_assembly, build_graph, chaining_phase)
+    _assembly_worker_count, _run_distributed_assembly, _run_parallel_assembly, build_graph,
+    chaining_phase)
 from muchsalsa_tpu_torch.assemble.linearize import linearize_graph
 from muchsalsa_tpu_torch.assemble.orientation import get_directed_graph, pick_start_vertex
 from muchsalsa_tpu_torch.io.fasta import SequenceStore
@@ -42,6 +47,7 @@ from muchsalsa_tpu_torch.config import DEFAULT_CONFIG, Config
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.matching.edges_torch import build_edges_device
 from muchsalsa_tpu_torch.ops.chaining_torch import chaining_phase_device
+from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
 
 
 def memory_stats(device: torch.device) -> dict:
@@ -53,6 +59,17 @@ def memory_stats(device: torch.device) -> dict:
     return out
 
 
+def _driver_mesh(config: Config, device: torch.device) -> mesh_mod.Mesh | None:
+    """The data-parallel mesh of the device phases: every visible device of
+    ``device``'s type, or None with ``use_device`` unset or fewer than two.
+    The devices are this process's own (``visible_devices``), so under a
+    process group each process's graph phases stay on its own cards, as
+    the JAX driver's ``local_only`` mesh does."""
+    if not config.device.use_device:
+        return None
+    return mesh_mod.local_mesh(device, axis=config.device.data_axis)
+
+
 def assemble(
     paf_path: str | Path,
     unitigs_path: str | Path,
@@ -61,6 +78,9 @@ def assemble(
     config: Config = DEFAULT_CONFIG,
     timer: StageTimer | None = None,
     workers: int | None = None,
+    process_index: int = 0,
+    process_count: int = 1,
+    allgather=None,
     *,
     device: str | torch.device,
 ) -> dict:
@@ -69,7 +89,11 @@ def assemble(
 
     ``workers > 1`` fans the per-component assembly out over host worker
     processes (spawned by default); they run host code only and never
-    touch the card.
+    touch the card.  With ``process_count > 1`` (a process group), the
+    components go round-robin over the processes and merge through
+    ``allgather`` (``pipeline/scrubber.py::torch_record_allgather``); every
+    process writes the same bytes.  A given ``allgather`` takes that branch
+    with one process too.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -94,11 +118,14 @@ def assemble(
         )
         store = MatchStore.from_paf(records)
 
+    mesh = _driver_mesh(config, dev)
+    timer.count("mesh_devices", 0 if mesh is None else mesh.size)
+
     on_device = config.device.use_device
     timer.count("edges_on_device", int(on_device))
     with timer.stage("edges"):
         if on_device:
-            edge_matches = build_edges_device(store, gcfg.th_overlap, device=dev)
+            edge_matches = build_edges_device(store, gcfg.th_overlap, device=dev, mesh=mesh)
         else:
             edge_matches = build_edges(store, gcfg.th_overlap)
         graph = build_graph(store, edge_matches)
@@ -122,6 +149,7 @@ def assemble(
                 config.device.chain_buckets,
                 config.device.min_device_batch,
                 device=dev,
+                mesh=mesh,
             )
             timer.count("chain_device_problems", placed["device_problems"])
             timer.count("chain_host_problems", placed["host_problems"])
@@ -175,7 +203,14 @@ def assemble(
         )
         components = spanning.connected_components(graph)
         lcfg = config.linearize
-        if (n_workers := _assembly_worker_count(workers, len(components))) > 1:
+        if process_count > 1 or allgather is not None:
+            n_workers = 1
+            n_paths = _run_distributed_assembly(
+                ctx, contain_elements, graph, components, lcfg, writer,
+                process_index, process_count,
+                allgather if allgather is not None else (lambda x: x),
+            )
+        elif (n_workers := _assembly_worker_count(workers, len(components))) > 1:
             n_paths = _run_parallel_assembly(
                 ctx, contain_elements, graph, components, lcfg, n_workers,
                 writer,

@@ -3,9 +3,8 @@ the spawn pool of the per-component assembly.
 
 The port's copy of ``muchsalsa_tpu/assemble/driver.py`` :47-310, line for
 line (``build_graph``, ``chain_edge``, ``chaining_phase``,
-``_assembly_worker_count`` and the pool).  The distributed fan-out
-(``_run_distributed_assembly``) waits for multi-GPU (ROADMAP.md §1 item
-12); the TPU link probe and the mesh are not ported (§1 item 14).  This
+``_assembly_worker_count``, the pool and the cross-process fan-out
+``_run_distributed_assembly``); the TPU link probe is not ported.  This
 module imports no ``torch``: the pool's spawned workers import it, and
 they run host code only.
 """
@@ -274,6 +273,64 @@ def _run_parallel_assembly(
         n_paths = asm_idx + 1
         by_idx = {}
         for out, counts in results:
+            for a_idx, q, p, t in out:
+                by_idx[a_idx] = (q, p, t)
+            for name, value in counts.items():
+                consensus.FALLBACK_COUNTS[name] += value
+        for i in range(n_paths):
+            q, p, t = by_idx[i]
+            writer.write_query(q)
+            writer.write_paf(p)
+            writer.write_target(t)
+        return n_paths
+    finally:
+        _ASM_STATE = None
+
+
+def _run_distributed_assembly(
+    ctx, contain_elements, graph, components, lcfg, writer,
+    process_index: int, process_count: int, allgather,
+) -> int:
+    """Cross-process component fan-out (the multi-host form of
+    ``src/main.cpp:303-310``): components go round-robin over the
+    processes, every process linearizes and assembles its share into
+    in-memory buffers, path lists and buffers cross through ``allgather``
+    (list in, the processes' lists concatenated in rank order out), and
+    every process writes the identical merged output in global path order,
+    byte-equal to the sequential loop.  The graph phases before this point
+    are deterministic replicas in each process, so only path lists and
+    output buffers cross."""
+    global _ASM_STATE
+    _ASM_STATE = {
+        "ctx": ctx, "contain": contain_elements, "graph": graph,
+        "components": components, "lcfg": lcfg,
+    }
+    try:
+        _WORKER_DIGS.clear()
+        mine = [i for i in range(len(components))
+                if i % process_count == process_index]
+        local_paths = [(i, _linearize_component(i)) for i in mine]
+        paths_by_comp = dict(allgather(local_paths))
+
+        # deterministic global assembly indices in component order
+        asm_idx = -1
+        tasks = {}
+        for comp_idx in range(len(components)):
+            indexed = []
+            for path in paths_by_comp.get(comp_idx, []):
+                asm_idx += 1
+                indexed.append((asm_idx, path))
+            if indexed:
+                tasks[comp_idx] = indexed
+        n_paths = asm_idx + 1
+
+        local_out = [_assemble_component_buffered((comp_idx, tasks[comp_idx]))
+                     for comp_idx in mine if comp_idx in tasks]
+        gathered = allgather(local_out)
+
+        consensus.reset_fallback_counts()
+        by_idx = {}
+        for out, counts in gathered:
             for a_idx, q, p, t in out:
                 by_idx[a_idx] = (q, p, t)
             for name, value in counts.items():

@@ -1,12 +1,14 @@
 """Scaffold all-pairs intersection on a torch device.
 
-Port of ``muchsalsa_tpu/matching/edges_jax.py`` (without the mesh): the
-device twin of ``matching.edges.build_edges``.  Scaffolds (unitig groups)
-pad into fixed (G, K) tables, one (K, K) upper-triangle intersection per
-scaffold runs as batched tensor ops, the surviving pairs are compacted on
-the device, and only they return to the host, where the identical
-``EdgeMatches`` table is finished.  Scaffolds larger than ``max_scaffold``
-run through the host pair path — same formulas, same output.
+Port of ``muchsalsa_tpu/matching/edges_jax.py``: the device twin of
+``matching.edges.build_edges``.  Scaffolds (unitig groups) pad into fixed
+(G, K) tables, one (K, K) upper-triangle intersection per scaffold runs as
+batched tensor ops, the surviving pairs are compacted on the device, and
+only they return to the host, where the identical ``EdgeMatches`` table is
+finished.  With a mesh, G pads to a multiple of its size and the scaffolds
+are cut over its devices (``parallel/sharded.py``).  Scaffolds larger than
+``max_scaffold`` run through the host pair path — same formulas, same
+output.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from muchsalsa_tpu_torch.matching.edges import (
     _empty_edges, _finish_edges, _pair_indices, _scaffold_groups)
 from muchsalsa_tpu_torch.matching.store import EdgeMatches, MatchStore
 from muchsalsa_tpu_torch.device import resolve_device
+from muchsalsa_tpu_torch.parallel.mesh import Mesh
+from muchsalsa_tpu_torch.parallel.sharded import run_sharded
 
 
 def scaffold_pairs_device(
@@ -46,9 +50,10 @@ def build_edges_device(
     max_scaffold: int = 256,
     *,
     device: str | torch.device,
+    mesh: Mesh | None = None,
 ) -> EdgeMatches:
-    """``build_edges`` with the all-pairs intersection on ``device``.
-    Output is identical to the host path."""
+    """``build_edges`` with the all-pairs intersection on ``device``, or cut
+    over ``mesh``'s devices.  Output is identical to the host path."""
     dev = resolve_device(device)
     n = len(store)
     if n == 0:
@@ -71,10 +76,12 @@ def build_edges_device(
     if len(dev_groups):
         K = 1 << int(max(int(group_sizes[dev_groups].max()) - 1, 0)).bit_length()
         G = len(dev_groups)
+        n_dev = 1 if mesh is None else mesh.size
+        Gp = -(-G // n_dev) * n_dev  # pad the scaffold count to a mesh multiple
 
-        ist = np.zeros((G, K), dtype=np.int32)
-        ien = np.full((G, K), -1, dtype=np.int32)
-        valid = np.zeros((G, K), dtype=bool)
+        ist = np.zeros((Gp, K), dtype=np.int32)
+        ien = np.full((Gp, K), -1, dtype=np.int32)
+        valid = np.zeros((Gp, K), dtype=bool)
         for slot, g in enumerate(dev_groups):
             sz = int(group_sizes[g])
             rows = order[group_starts[g] : group_starts[g] + sz]
@@ -82,16 +89,19 @@ def build_edges_device(
             ien[slot, :sz] = store.illu_end[rows]
             valid[slot, :sz] = True
 
-        ov_s, ov_e, keep = scaffold_pairs_device(
-            torch.from_numpy(ist).to(dev), torch.from_numpy(ien).to(dev),
-            torch.from_numpy(valid).to(dev), th_overlap)
-        # torch.nonzero is row-major, the (g, j, i) order of np.nonzero
-        slot_t, j_t, i_t = torch.nonzero(keep).unbind(1)
-        s_np = ov_s[slot_t, j_t, i_t].cpu().numpy()
-        e_np = ov_e[slot_t, j_t, i_t].cpu().numpy()
-        slot_idx = slot_t.cpu().numpy()
-        j_idx = j_t.cpu().numpy()
-        i_idx = i_t.cpu().numpy()
+        tables = tuple(torch.from_numpy(a) for a in (ist, ien, valid))
+        if mesh is None:
+            shards = [scaffold_pairs_device(*(t.to(dev) for t in tables), th_overlap)]
+        else:
+            shards = run_sharded(scaffold_pairs_device, mesh, tables, th_overlap=th_overlap)
+        kept = []
+        for first_slot, (ov_s, ov_e, keep) in zip(range(0, Gp, Gp // len(shards)), shards):
+            # torch.nonzero is row-major, the (g, j, i) order of np.nonzero
+            slot_t, j_t, i_t = torch.nonzero(keep).unbind(1)
+            kept.append((slot_t + first_slot, j_t, i_t, ov_s[slot_t, j_t, i_t],
+                         ov_e[slot_t, j_t, i_t]))
+        slot_idx, j_idx, i_idx, s_np, e_np = (
+            np.concatenate([k[f].cpu().numpy() for k in kept]) for f in range(5))
 
         g_idx = dev_groups[slot_idx]
         base = group_starts[g_idx]

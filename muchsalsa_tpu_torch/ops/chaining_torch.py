@@ -6,7 +6,9 @@ memory (``state.py``) and copied to the card once; the fused kernel
 ``chain_dp`` (``ops/chain_scan.py``) builds each problem's compatibility and
 runs its forward DP, and only the per-problem scores and backpointers
 return to the host, where chain reconstruction and the selection rules
-reuse the oracle's ``finalize_paths``.
+reuse the oracle's ``finalize_paths``.  With a mesh of more than one
+device, B rounds up to a multiple of its size and each bucket runs through
+``parallel/sharded.py::sharded_chain_dp``, one launch per shard.
 
 Arithmetic is float64 on every device, bit-equal to the JAX package on the
 CPU and to the host oracle ``ops.chaining.check_compatibility``.
@@ -23,6 +25,8 @@ from muchsalsa_tpu_torch.ops.chaining import (
 from muchsalsa_tpu_torch.ops.overlap import get_overlap
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.chain_scan import chain_dp, compat_init_batch  # noqa: F401
+from muchsalsa_tpu_torch.parallel.mesh import Mesh
+from muchsalsa_tpu_torch.parallel.sharded import sharded_chain_dp
 from muchsalsa_tpu_torch.state import FLOAT_FIELDS, pack_batch, pack_flags
 
 Tensor = torch.Tensor
@@ -81,8 +85,10 @@ def chaining_phase_device(
     min_device_batch: int = 32,
     *,
     device: str | torch.device,
+    mesh: Mesh | None = None,
 ) -> dict:
-    """Device-batched variant of ``driver.chaining_phase``.
+    """Device-batched variant of ``driver.chaining_phase``, on ``device`` or
+    sharded over ``mesh`` where it has more than one device.
 
     One problem per (edge, strand class); batch construction is vectorised
     (one global lexsort + flat scatters).  Problems larger than the biggest
@@ -145,6 +151,9 @@ def chaining_phase_device(
         # does, so that both compute on identical tables
         nb = len(probs)
         B = 1 << int(nb - 1).bit_length() if nb > 1 else 1
+        meshed = mesh is not None and mesh.size > 1
+        if meshed:
+            B = -(-B // mesh.size) * mesh.size  # shard evenly over the mesh
         K = bucket
         sel_sizes = sizes[probs]
         total = int(sel_sizes.sum())
@@ -153,8 +162,11 @@ def chaining_phase_device(
 
         # one packed batch of the anchors in pinned memory, one copy each way
         packed = bucket_batch(f, src, sel_sizes, prob_dir[probs], B, pin=dev.type == "cuda")
-        scores_dev, bps_dev = chain_dp(*(x.to(dev, non_blocking=True) for x in packed), K,
-                                       int(wiggle_room))
+        if meshed:
+            scores_dev, bps_dev, _stats = sharded_chain_dp(*packed, K, int(wiggle_room), mesh)
+        else:
+            scores_dev, bps_dev = chain_dp(*(x.to(dev, non_blocking=True) for x in packed), K,
+                                           int(wiggle_room))
         # one transfer per bucket, not per problem
         scores_np = scores_dev.cpu().numpy()
         bps_np = bps_dev.cpu().numpy()

@@ -12,6 +12,9 @@ packed join tables (``_pack_blocks``, ``_row_bucket``,
 5. ``expand_anchors_device_v2``: packed-row join and entry expansion;
 6. ``anchors_to_hits_device_dense`` (or ``_packed``): the chaining tail.
 
+``map_reads_device_v2`` (and ``_packed``) composes the six into one call,
+the step that ``parallel/sharded.py`` runs on each shard.
+
 Every function takes and returns tensors on one device and never moves
 them.  The JAX package's uint32 values (hashes, probe words, hash rows) are
 int64 here, holding values in ``[0, 2**32)``; everything else keeps its
@@ -474,6 +477,30 @@ def unpack_hits(arr, max_hits: int) -> dict:
     out["n_hits"] = arr[:, -2]
     out["overflow"] = arr[:, -1] != 0
     return out
+
+
+def map_reads_device_v2(codes, lens, rp, jrows, erows, *, k: int = 15, w: int = 5,
+                        bandwidth: int = 500, min_anchor_count: int = 4,
+                        min_chain_score: int = 100, max_sel: int = 4608, max_pos: int = 1024,
+                        max_per_hit: int = 4, max_hits: int = 64, hash_takes: int = 1,
+                        trim: int | None = None):
+    """The six v2 stages as one call over (R, L) codes (pad 4) and the
+    ``DeviceTables`` fields: ``mapping_jax.map_reads_device_v2``, the
+    expansion-cap violation folded into ``overflow``.  Returns the dict of
+    ``HIT_FIELDS`` (R, max_hits) plus ``n_hits`` and ``overflow``."""
+    selected, h, strand = minimizer_sketch(codes, lens, k, w)
+    skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=max_sel)
+    rpv, cand = probe_candidates_device_v2(skey, h_s, rp)
+    sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=max_pos)
+    key, diag, aq, at, overflow, max_ecnt = expand_anchors_device_v2(
+        *sel, jrows, erows, max_per_hit=max_per_hit, hash_takes=hash_takes)
+    return _anchors_to_hits(key, diag, aq, at, k, bandwidth, min_anchor_count, min_chain_score,
+                            max_hits, overflow | (max_ecnt > max_per_hit), trim=trim)
+
+
+def map_reads_device_v2_packed(packed, nmask, lens, rp, jrows, erows, **kwargs):
+    """``map_reads_device_v2`` over 2-bit packed codes (``pack_codes``)."""
+    return map_reads_device_v2(unpack_codes(packed, nmask), lens, rp, jrows, erows, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Batched minimizer sketch on a torch device.
 
 Port of ``muchsalsa_tpu/ops/minimizer_jax.py::fmix32_jnp`` (:21),
-``minimizer_sketch`` (:32-88) and ``build_hash_bitmap`` (:96-109):
-canonical k-mer packing, fmix32 hashing and leftmost-minimum window
-selection over a padded ``(R, L)`` read batch, the seeding stage of device
-mapping, and the occupancy bitmap of the v1 join.
+``minimizer_sketch`` (:32-88), ``build_hash_bitmap`` (:96-109),
+``anchor_counts_bitmap`` (:112) and ``anchor_counts`` (:133): canonical
+k-mer packing, fmix32 hashing and leftmost-minimum window selection over a
+padded ``(R, L)`` read batch, the seeding stage of device mapping; the
+occupancy bitmap of the v1 join; and per-read anchor counts against an
+index, the lookup that ``parallel/sharded.py::sharded_anchor_counts`` runs.
 
 The JAX function carries hashes as uint32.  Here they are int64 holding
 values in ``[0, 2**32)``: every shift and sum is masked to 32 bits, and
@@ -112,3 +114,24 @@ def build_hash_bitmap(index_hashes, log2_bits: int = BITMAP_LOG2_BITS, *, device
     table = np.zeros(1 << (log2_bits - 5), dtype=np.uint32)
     np.bitwise_or.at(table, word, np.uint32(1) << bit)
     return torch.from_numpy(table.view(np.int32)).to(device)
+
+
+def anchor_counts_bitmap(codes, lens, bitmap, k: int = 15, w: int = 5,
+                         log2_bits: int = BITMAP_LOG2_BITS) -> torch.Tensor:
+    """(R,) int32 counts of each read's minimizers whose folded hash is set
+    in ``bitmap`` (``build_hash_bitmap``): an upper bound of
+    ``anchor_counts`` (false positives: |index| / 2^log2_bits)."""
+    selected, h, _ = minimizer_sketch(codes, lens, k, w)
+    folded = h & ((1 << log2_bits) - 1)
+    probe = (bitmap[folded >> 5].to(torch.int64) >> (folded & 31)) & 1
+    return ((probe != 0) & selected).sum(dim=1).to(torch.int32)
+
+
+def anchor_counts(codes, lens, index_hashes, k: int = 15, w: int = 5) -> torch.Tensor:
+    """(R,) int32 counts of each read's minimizers found in the sorted
+    ``index_hashes`` (int64, 32-bit values) by ``searchsorted``."""
+    selected, h, _ = minimizer_sketch(codes, lens, k, w)
+    if not index_hashes.numel():
+        return torch.zeros(h.shape[0], dtype=torch.int32, device=h.device)
+    pos = torch.clamp(torch.searchsorted(index_hashes, h), max=index_hashes.numel() - 1)
+    return ((index_hashes[pos] == h) & selected).sum(dim=1).to(torch.int32)

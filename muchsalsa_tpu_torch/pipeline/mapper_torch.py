@@ -13,7 +13,11 @@ that break a static budget take a second, wider tier on the device or go
 to the host mapper (one ``map_batch`` call at the end); either way the
 result equals ``map_read``'s.  Where the index breaks the v2 packing
 bounds, each batch goes through the v1 join (``map_reads_device``) instead,
-and the reads it flags go to the host mapper.
+and the reads it flags go to the host mapper.  Where more than one device of
+the requested type is visible, v2 batches shard over all of them
+(``parallel/sharded.py::sharded_map_reads_v2_packed``, the tables
+replicated) and come back in the padded layout, with no tier 2: reads past
+a budget go to the host mapper.
 Refinement packs every mapped region into one batch
 (``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
 and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
@@ -42,6 +46,8 @@ from muchsalsa_tpu_torch.ops.mapping_torch import (
     pack_codes, pack_hits, probe_candidates_device_v2, select_compact_device_v2,
     sketch_device_packed, u32_tensor, unpack_hits)
 from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
+from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
+from muchsalsa_tpu_torch.parallel.sharded import sharded_map_reads_v2_packed
 
 __all__ = [
     "DEVICE_MAP_STATS", "DEVICE_MAP_STATS_CUM", "MinimizerIndex", "SequenceStore", "map_all",
@@ -112,6 +118,12 @@ def map_all_with_device(
     Where the index breaks the v2 packing bounds (or ``max_per_hit`` >= 31),
     the v1 join maps every batch on the device (``_map_v1``) and the stats
     say ``v2=False``; it has no tier 2, no dense pull and no batch cache.
+
+    With the v2 tables and more than one visible device of ``device``'s
+    type (``parallel.mesh.local_mesh``), ``batch_reads`` rounds up to a
+    multiple of their count D and each batch shards over them, the padded
+    layout coming back; reads past a budget go to the host (no tier 2, no
+    dense pull).  The stats say ``n_devices=D`` and ``meshed=True``.
     Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``.
     """
     dev = resolve_device(device)
@@ -122,16 +134,22 @@ def map_all_with_device(
     if built is None and max_per_hit < 31:  # v2 count-saturation bound
         built = build_device_tables(index.hashes, index.offsets, index.entry_unitig,
                                     index.entry_pos, index.entry_strand, device=dev)
+    attached = mesh_mod.local_mesh(dev)
+    mesh = attached if built is not None else None  # the v1 join runs unsharded
+    if mesh is not None:
+        # round the batch up so that it shards evenly: the pad rows have
+        # length 0, so no hits and no cost
+        batch_reads = -(-batch_reads // mesh.size) * mesh.size
     DEVICE_MAP_STATS.update(
-        device=str(dev), n_devices=1, meshed=False, batch_reads=batch_reads,
-        v2=built is not None, total_reads=len(items), overflow_reads=0, dense_repulls=0,
-        tier2_reads=0)
+        device=str(dev), n_devices=1 if attached is None else attached.size,
+        meshed=mesh is not None, batch_reads=batch_reads, v2=built is not None,
+        total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
         _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits)
     else:
         _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
-                max_per_hit, max_hits, hit_budget)
+                max_per_hit, max_hits, hit_budget, mesh)
     for k2 in _CUM_KEYS:
         DEVICE_MAP_STATS_CUM[k2] = DEVICE_MAP_STATS_CUM.get(k2, 0) + DEVICE_MAP_STATS[k2]
     return [(rid, results[rid]) for rid, _ in items]
@@ -172,7 +190,7 @@ def _copy_to_host(t: torch.Tensor):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ready = torch.cuda.Event()
-    ready.record()
+    ready.record(torch.cuda.current_stream(t.device))
     return host, ready
 
 
@@ -188,6 +206,15 @@ def _pipelined(batches, dispatch, collect) -> None:
         pending = nxt
     if pending is not None:
         collect(pending)
+
+
+def _collect_packed(pending, max_hits, results, to_host) -> None:
+    """A pending packed pull (chunk, ``pack_hits`` tensor on the host, its
+    ready event) into ``results`` once the copy has landed."""
+    chunk, flat, ready = pending
+    if ready is not None:
+        ready.synchronize()
+    _collect_padded(chunk, unpack_hits(flat, max_hits), results, to_host)
 
 
 def _collect_padded(chunk, out, results, to_host) -> None:
@@ -237,22 +264,18 @@ def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, 
             trim=trim_L)
         return chunk, *_copy_to_host(pack_hits(out))
 
-    def collect(pending):
-        chunk, flat, ready = pending
-        if ready is not None:
-            ready.synchronize()
-        _collect_padded(chunk, unpack_hits(flat, max_hits), results, to_host)
-
     _pipelined(((members[s : s + batch_reads], L)
                 for L, members in _length_buckets(items)
-                for s in range(0, len(members), batch_reads)), dispatch, collect)
+                for s in range(0, len(members), batch_reads)), dispatch,
+               lambda pending: _collect_packed(pending, max_hits, results, to_host))
     _map_on_host(index, to_host, cfg, results)
 
 
 def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
-            max_hits, hit_budget):
-    """The v2 pass of ``map_all_with_device``: fills ``results``; the reads
-    that leave the device are mapped on the host at the end, in one call."""
+            max_hits, hit_budget, mesh):
+    """The v2 pass of ``map_all_with_device``, sharded over ``mesh`` when
+    one is given: fills ``results``; the reads that leave the device are
+    mapped on the host at the end, in one call."""
     tables, hash_takes = built
     if hit_budget is None:
         hit_budget = 16 * batch_reads
@@ -262,6 +285,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
                    min_chain_score=cfg.min_chain_score, max_hits=max_hits)
 
+    to_host: list[tuple[int, bytes]] = []
     dev_cache = _batch_cache(reads, dev)
     cache_cap = int(os.environ.get("MS_TPU_DEV_CACHE_MB", "2048")) << 20
 
@@ -302,6 +326,25 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
             cache_put(key, tensors)
         return tensors
 
+    batches = ((members[s : s + batch_reads], L, s)
+               for L, members in _length_buckets(items)
+               for s in range(0, len(members), batch_reads))
+    if mesh is not None:
+        def dispatch_meshed(chunk, L, s):
+            """One batch sharded over the mesh; returns the pending padded
+            pull (chunk, hits on the host, its ready event)."""
+            sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
+            out, _stats = sharded_map_reads_v2_packed(
+                *packed_batch(chunk, L, s), tables, mesh, w=cfg.w, max_sel=sel_L,
+                max_pos=pos_L, max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L,
+                **tail_kw)
+            return chunk, *_copy_to_host(pack_hits(out))
+
+        _pipelined(batches, dispatch_meshed,
+                   lambda pending: _collect_packed(pending, max_hits, results, to_host))
+        _map_on_host(index, to_host, cfg, results)
+        return
+
     def dispatch(chunk, L, s, mph=max_per_hit, pos_cap=max_pos, cache_batch=True):
         """The six stages of one batch, queued on the device; returns the
         pending pull (chunk, flat hits on the host, its ready event,
@@ -326,7 +369,6 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     if tier2_mph <= max_per_hit:
         tier2_mph = 0
     deferred: dict[int, list[tuple[int, bytes]]] = {}
-    to_host: list[tuple[int, bytes]] = []
 
     def collect(pending):
         chunk, flat, ready, anchors, trim, mph = pending
@@ -370,9 +412,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     def run(batches, **kw):
         _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect)
 
-    run((members[s : s + batch_reads], L, s)
-        for L, members in _length_buckets(items)
-        for s in range(0, len(members), batch_reads))
+    run(batches)
     # tier 2 over the deferred reads: the wider cap and twice the widths;
     # its own violations go to the host (mph == tier2_mph there)
     if deferred:

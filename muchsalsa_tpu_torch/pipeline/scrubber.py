@@ -15,9 +15,9 @@ starts.
 
 The port's copy of ``muchsalsa_tpu/pipeline/scrubber.py``.  Its device
 all-vs-all (``_device_all_vs_all``) maps each subset on a torch device
-through the port's device mapper; the cross-process record exchange
-(``jax_record_allgather``) stays behind (ROADMAP.md §1, multi-GPU), and asking
-for it raises.
+through the port's device mapper; across processes the subsets go
+round-robin and their records cross through ``torch_record_allgather``
+(the counterpart of ``jax_record_allgather``).
 """
 
 from __future__ import annotations
@@ -407,15 +407,18 @@ def scrub_reads(
     ``device`` (a torch device, or False for the host) is where each
     subset's all-vs-all maps; a subset that the guard of
     ``_device_all_vs_all`` declines maps on the host, and the guard prints
-    its line; ``SCRUB_DEVICE_STATS`` counts both.  The JAX package also
-    shards the per-subset all-vs-all across processes (``process_count >
-    1``, records exchanged through ``allgather``); the port does not yet,
-    so that raises (ROADMAP.md §1, multi-GPU).
+    its line; ``SCRUB_DEVICE_STATS`` counts both (this process's subsets).
+
+    With ``process_count > 1`` the per-subset all-vs-all overlap step is
+    sharded round-robin across processes and the record lists exchanged
+    through ``allgather`` (``allgather(list_of_(subset_idx, records)) ->
+    the processes' lists concatenated``, ``torch_record_allgather``).  The
+    merge/emit pass replays records in subset order, so the output is
+    identical to the single-process run.  Several processes without an
+    ``allgather`` raise: no process would see the others' records.
     """
-    if process_count > 1 or allgather is not None:
-        raise NotImplementedError(
-            "the distributed scrub is not ported to muchsalsa_tpu_torch yet "
-            "(ROADMAP.md §1, multi-GPU)")
+    if process_count > 1 and allgather is None:
+        raise ValueError(f"scrub_reads over {process_count} processes needs an allgather")
     scrub_cfg = scrub_cfg or ScrubConfig()
     mapper_cfg = mapper_cfg or MapperConfig()
     if device is not False:
@@ -428,13 +431,35 @@ def scrub_reads(
     nodes, adj = build_anchor_graph(paf_lines, scrub_cfg.min_hit_length)
     schedule = _subset_schedule(nodes, adj, scrub_cfg.subset_size)
 
-    record_lists = [
-        _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg, device=device)
-        for subset, _center in schedule
-    ]
+    if process_count > 1:
+        local = [
+            (i, _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg, device=device))
+            for i, (subset, _center) in enumerate(schedule)
+            if i % process_count == process_index
+        ]
+        by_subset = dict(allgather(local))
+        record_lists = [by_subset[i] for i in range(len(schedule))]
+    else:
+        record_lists = [
+            _subset_overlap_records(subset, reads, scrub_cfg, mapper_cfg, device=device)
+            for subset, _center in schedule
+        ]
 
     out: list[tuple[str, bytes]] = []
     for (subset, center), records in zip(schedule, record_lists):
         _apply_and_emit(nodes, center, records, reads, out, scrub_cfg)
     return out
 
+
+def torch_record_allgather(local: list) -> list:
+    """Exchange per-subset (or per-component) records across the process
+    group: every process's list, concatenated in rank order
+    (``torch.distributed.all_gather_object`` over gloo).  The identity
+    without a group of more than one process."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return local
+    gathered: list = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, local)
+    return [record for part in gathered for record in part]

@@ -26,6 +26,7 @@ from muchsalsa_tpu_torch.assemble.driver import assemble
 from muchsalsa_tpu_torch.config import Config
 from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.chain_scan import chain_scan
+from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
 from muchsalsa_tpu_torch.pipeline.cli import main
 from muchsalsa_tpu_torch.testing.simulate import simulate, write_simulation
 from tests.test_golden import GOLDEN
@@ -86,9 +87,13 @@ def test_port_host_oracle_branch_reproduces_golden(tmp_path):
     assert chain_scan.launches == before
 
 
-def test_port_matches_jax_assemble(tmp_path):
+def test_port_matches_jax_assemble(tmp_path, monkeypatch):
     paths = _small_data(tmp_path, seed=21, glen=30_000)
     args = (paths["paf"], paths["unitigs"], paths["reads"])
+    # the JAX driver meshes its device phases over the 8 virtual devices of
+    # tests/conftest.py: the port's over 8 CPU shards, so that every shared
+    # counter (mesh_devices and chain_batch_k* too) compares
+    monkeypatch.setattr(mesh_mod, "visible_devices", lambda: [torch.device("cpu")] * 8)
     r_port = assemble(*args, tmp_path / "port", device="cpu")
     r_jax = jax_assemble(*args, tmp_path / "jax")
     for name in OUTPUTS:

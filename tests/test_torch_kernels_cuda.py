@@ -368,3 +368,41 @@ def test_port_v1_mapping_on_card_matches_host(cuda, monkeypatch):
         assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, device=False,
                                      torch_device=cuda)
         assert (myers_edit_distance.launches > before) == refine
+
+
+def two_shards_on(cuda):
+    from muchsalsa_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[cuda, cuda])
+
+
+@pytest.mark.parametrize("kind", ("random", "inverted"))
+def test_sharded_chain_dp_on_card_matches_kernel(cuda, kind):
+    """Two shards on one card: bit-equal to one chain_dp launch over the
+    whole batch, one launch a shard, the stats a host sum."""
+    from muchsalsa_tpu_torch.parallel.sharded import sharded_chain_dp
+
+    B, K = 4096, 16
+    packed = pack_batch(chain_batch(B, K, kind, seed=7))
+    before = chain_dp.launches
+    s, b, stats = sharded_chain_dp(*packed, K, WIGGLE_ROOM, two_shards_on(cuda))
+    torch.cuda.synchronize()
+    assert chain_dp.launches == before + 2
+    s_ref, b_ref = chain_dp(*(x.to(cuda) for x in packed), K, WIGGLE_ROOM)
+    assert torch.equal(s, s_ref) and torch.equal(b, b_ref)
+    sizes = (packed[2][1:] - packed[2][:-1]).to(cuda)
+    best = torch.where(torch.arange(K, device=cuda) < sizes[:, None], s_ref, 0.0).amax(1)
+    assert float(stats[0]) == float((sizes > 0).sum())
+    assert float(stats[1]) == pytest.approx(float(best.sum()), rel=1e-12)
+
+
+def test_sharded_myers_on_card_matches_kernel(cuda):
+    from muchsalsa_tpu_torch.parallel.sharded import sharded_myers
+
+    args = [x.to(cuda) for x in pack_problems(random_pairs(np.random.default_rng(5), 4096, 200))]
+    before = myers_edit_distance.launches
+    d, total = sharded_myers(*args, two_shards_on(cuda))
+    torch.cuda.synchronize()
+    assert myers_edit_distance.launches == before + 2
+    d_ref = myers_edit_distance(*args)
+    assert torch.equal(d, d_ref) and float(total) == float(d_ref.sum())

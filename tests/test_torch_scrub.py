@@ -140,7 +140,8 @@ def test_high_multiplicity_subset_declines_visibly(capsys):
 def test_scrub_refuses_what_it_cannot_run(tiled, monkeypatch):
     reads, paf = tiled
     _jax_reads, port_reads = stores(reads)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # several processes with no allgather to exchange their records
+    with pytest.raises(ValueError, match="needs an allgather"):
         scrub_reads(paf, port_reads, process_count=2, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
