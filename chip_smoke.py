@@ -141,7 +141,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP64_FLOPS = 34e12             # H100 SXM data sheet, outside the tensor cores
 INT32_OPS_PER_CLK_SM = 64      # Hopper's int32 issue rate
 MYERS_OPS = 15                 # int32 ops of one (column, word) Myers step
-WAVEFRONT_OPS = 10             # int32 ops of one band cell of the wavefront
+WAVEFRONT_OPS = 3              # int32 issue slots of one wavefront band cell: the cost's
+                               # compare, then min(S[x+1] + 2, left) and min(S[x] + cost, .),
+                               # one DPX add-min each on sm_90a (the recurrence's 5 ops)
 DP_PAIR_OPS = 35               # float64 compares and adds of one chain_dp pair test
 WINDOW_WORDS = (2, 4, 8)
 BANDS = (128, 256)
@@ -235,7 +237,8 @@ def dp_bound(offsets: torch.Tensor, K: int) -> tuple[float, str]:
 def align_bound(name: str, args, kw: dict, int32_ops_per_s: float) -> tuple[float, str]:
     """Bound of one edit-distance call on these inputs: every code and
     length read once, the distances written once; the int32 ops of the
-    work these lengths need (the kernels stop at each problem's end)."""
+    work these lengths need (the kernels stop at each problem's end; a
+    wavefront band cell is ``WAVEFRONT_OPS`` issue slots)."""
     from muchsalsa_tpu_torch.ops.myers_torch import geometry
 
     q, ql, t, tl = args

@@ -2,7 +2,9 @@
 
 Host numpy only, from a seed: query/target byte pairs whose targets are the
 queries mutated at 0-30 % (substitutions, insertions, deletions, ``N``s
-among the bases), plus empty queries and targets of unrelated length.
+among the bases), plus empty queries and targets of unrelated length, and
+the banded wavefront's edge cases beside them (``band_edge_pairs``,
+``scramble_past_lengths``).
 ``myers_bigint`` (the port's copy of the JAX package's host oracle, Python
 big ints) is re-exported here; it counts ``N`` against ``N`` as a match,
 unlike the kernels' PEq.
@@ -14,7 +16,8 @@ import numpy as np
 
 from muchsalsa_tpu_torch.ops.myers import myers_bigint
 
-__all__ = ["mutate", "myers_bigint", "random_pairs", "random_seq"]
+__all__ = ["band_edge_pairs", "mutate", "myers_bigint", "random_pairs", "random_seq",
+           "scramble_past_lengths"]
 
 _ALPHABET = np.frombuffer(b"ACGTN", dtype=np.uint8)
 
@@ -66,3 +69,28 @@ def random_pairs(
             t = mutate(rng, q, float(rng.uniform(0, max_rate)))
         pairs.append((q, t))
     return pairs
+
+
+def band_edge_pairs(rng: np.random.Generator, P: int, M: int, band: int
+                    ) -> list[tuple[bytes, bytes]]:
+    """``P`` >= 7 pairs of at most ``M`` query bases for the banded
+    wavefront: ``random_pairs``, then |n - m| at band - 1 and band (both
+    signs), a target shorter than the band, a query half of ``N``s, and
+    ``N``s against ``N``s."""
+    edges = []
+    for d in (band - 1, band, -(band - 1), -band):
+        m = int(rng.integers(min(band, M), M + 1))
+        edges.append((random_seq(rng, m), random_seq(rng, max(m + d, 0))))
+    edges += [(random_seq(rng, int(rng.integers(1, M + 1))),
+               random_seq(rng, int(rng.integers(1, band)))),
+              (random_seq(rng, M, n_rate=0.5), random_seq(rng, M)), (b"NNNA", b"NNNNA")]
+    return random_pairs(rng, P - len(edges), M) + edges
+
+
+def scramble_past_lengths(rng: np.random.Generator, t_codes: np.ndarray,
+                          t_lens: np.ndarray) -> np.ndarray:
+    """A copy of the (P, N) codes with every byte past a row's length set to
+    a random base code 0-3 in place of the padding: bytes a kernel may read
+    but must not let reach its result."""
+    past = np.arange(t_codes.shape[1])[None, :] >= np.asarray(t_lens)[:, None]
+    return np.where(past, rng.integers(0, 4, t_codes.shape, dtype=np.uint8), t_codes)

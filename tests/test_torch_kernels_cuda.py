@@ -25,7 +25,7 @@ from muchsalsa_tpu_torch.ops.myers_torch import (
 from muchsalsa_tpu_torch.state import pack_batch
 from muchsalsa_tpu_torch.testing.chains import KINDS as CHAIN_KINDS
 from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch, inverted_pair_batch
-from muchsalsa_tpu_torch.testing.pairs import random_pairs
+from muchsalsa_tpu_torch.testing.pairs import band_edge_pairs, random_pairs, scramble_past_lengths
 
 pytestmark = pytest.mark.cuda
 
@@ -225,6 +225,35 @@ def test_myers_banded_kernel_rejects_bad_inputs(cuda):
 def test_wavefront_kernel_matches_reference(cuda, P, M, band):
     check_kernel(banded_edit_distance, banded_edit_distance_reference,
                  align_inputs(P, M, P + M + 2, cuda), band=band)
+
+
+def wavefront_edge_inputs(P, M, band, seed, device):
+    """``band_edge_pairs`` on ``device``, every target's bytes past its
+    length set to codes 0-3, which the kernel may read and must not let
+    reach the result."""
+    rng = np.random.default_rng(seed)
+    q, ql, t, tl = pack_problems(band_edge_pairs(rng, P, M, band))
+    t = torch.from_numpy(scramble_past_lengths(rng, t.numpy(), tl.numpy()))
+    return tuple(x.to(device) for x in (q, ql, t, tl))
+
+
+@pytest.mark.parametrize("band", (32, 64, 256, 512))
+@pytest.mark.parametrize("P,M", [(7, 60), (33, 300), (517, 1000)])
+def test_wavefront_kernel_edges(cuda, P, M, band):
+    """Every band class's edges, P not a multiple of the block's warps,
+    garbage past each target's length, with and without max_m < M."""
+    args = wavefront_edge_inputs(P, M, band, P + M + band, cuda)
+    for max_m in (None, M // 2):
+        check_kernel(banded_edit_distance, banded_edit_distance_reference, args, band=band,
+                     max_m=max_m)
+
+
+@pytest.mark.parametrize("band", (32, 256, 512))
+def test_wavefront_kernel_long_queries(cuda, band):
+    """M = 4096: a problem sweeps up to 64 of the kernel's staged chunks of
+    rows."""
+    check_kernel(banded_edit_distance, banded_edit_distance_reference,
+                 wavefront_edge_inputs(33, 4096, band, band, cuda), band=band)
 
 
 def test_align_kernels_reject_unsupported_shapes(cuda):
