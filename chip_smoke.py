@@ -99,6 +99,15 @@ exits non-zero without its last line:
              card) byte-identical to one in-process ``scrub_reads`` on the
              card; each wall beside its unsharded or single-process
              counterpart.
+12. scale  — the 1 Mb row of ``testing/scale.py::SCALE_ROWS``: the JAX
+             package's ``scripts/scale_run.py`` inputs made by the port's
+             ``make_scale_inputs`` (12x nanopore reads at 7 % noise, a
+             fifth with junk tails, 30x Illumina pairs) through the port's
+             ``full`` with every leg on the card (``run_scale_row``); the
+             three inputs' and the assembly's sha256 and the contig
+             statistics equal to the row's, chain_dp launched, no jax
+             loaded; stage walls, peak CUDA memory, the legs' counters and
+             each map stage's overflow and tier-2 reads.
 
 Then the kernel summary line (each kernel's launches on its path, error,
 kernel and plain times, bound and what bounds it, and the library yardstick:
@@ -891,6 +900,37 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
     return dev["launches"]["chain_dp"], dev["launches"]["myers_full"]
 
 
+SCALE_MB = 1.0  # phase 12's row of testing/scale.py::SCALE_ROWS
+
+
+def phase_scale(card: str, work: Path, device) -> None:
+    """Phase 12: the ``SCALE_MB`` row of ``SCALE_ROWS`` through the port's
+    ``full`` with every leg on the card, held to the JAX package's hashes
+    and contig statistics."""
+    from muchsalsa_tpu_torch.testing.scale import run_scale_row
+
+    t0 = time.perf_counter()
+    record = run_scale_row(work / "scale", SCALE_MB, device=device, log=lambda line: None)
+    assert_no_reference("the port's scale row")
+    emit("scale", card=card, phase_s=time.perf_counter() - t0,
+         **{k: record[k] for k in (
+             "genome_mb", "simulation_s", "full_s", "stages_s", "stats", "equal",
+             "cuda_peak_bytes", "core_cuda_peak_bytes", "kmer", "dbg", "map", "chain",
+             "chain_dp_launches")},
+         scrub={k: v for k, v in record["scrub"].items() if k != "subsets"},
+         scrub_subsets=[(s["multiplicity"], s["chunks"], s["declined"])
+                        for s in record["scrub"].get("subsets", [])])
+    if not (record["row"] and record["equal"] and all(record["equal"].values())):
+        raise AssertionError(f"the {SCALE_MB} Mb scale row differs from the JAX package's: "
+                             f"{record['equal']}, {record['sha256']}")
+    if record["chain_dp_launches"] == 0:
+        raise AssertionError("the scale row's core never launched chain_dp")
+    on_card = str(torch.device("cuda", torch.cuda.current_device()))
+    if record["kmer"].get("device") != on_card or record["dbg"].get("device") != on_card:
+        raise AssertionError(f"the scale row's legs did not run on {on_card}: "
+                             f"{record['kmer']}, {record['dbg']}")
+
+
 def run_group(script: str, n: int, args_of, timeout: float) -> float:
     """``n`` processes of ``scripts/{script}`` in one gloo process group on
     the card (``--device cuda``); ``args_of(pid)`` gives a process's
@@ -1278,6 +1318,9 @@ def main() -> int:
     phase_multi(card, work, args, port_wall, dp_batch, regions,
                 (*map_data, host_lines, map_stats, map_walls))
     del map_data
+
+    # --- 12. the 1 Mb scale row, every leg on the card
+    phase_scale(card, work, "cuda")
 
     assert_no_reference("chip_smoke")
     # no single PyTorch call computes any of the five functions: no yardstick;

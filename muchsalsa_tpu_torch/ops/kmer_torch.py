@@ -15,7 +15,13 @@ each chunk as a fixed (chunk_bases // row_len, row_len) block of padded
 rows, which spared XLA its recompiles; short reads (Illumina's 150 bases
 in rows of 16,384) made that 99 % padding, and 512 reads a chunk left the
 host to merge ~1,500 chunks' runs.  Here a chunk is its fragments joined
-end to end, up to ``chunk_bases`` bases, and the merge stays on the device.
+end to end, up to ``chunk_bases`` bases, and the merge stays on the device:
+the runs of the chunks counted since the last merge are merged into the
+one run before them once they hold ``merge_elems`` values and at least as
+many as it, so the card holds at most about twice the distinct k-mers or
+one group of runs (a 40 Mb genome's 30x Illumina is ~1.0·10^9 windows in
+~143 chunks, most of them distinct within their chunk: kept to the end,
+they and one merge of them would take most of an 80 GB card).
 """
 
 from __future__ import annotations
@@ -79,9 +85,28 @@ def sort_count_chunk(values: Tensor, valid: Tensor) -> tuple[Tensor, Tensor, Ten
     return sorted_vals, counts, first, n_valid
 
 
+def merge_runs(vals: list[Tensor], counts: list[Tensor]) -> tuple[Tensor, Tensor]:
+    """One run of several: each run's values sorted and distinct, with
+    their counts; returns the sorted distinct values of all of them and the
+    counts summed a value (a stable sort, then sums over each value's
+    slots)."""
+    v, order = torch.sort(torch.cat(vals), stable=True)
+    c = torch.cat(counts)[order]
+    del order
+    first = torch.ones_like(v, dtype=torch.bool)
+    first[1:] = v[1:] != v[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    del first
+    ends = torch.cat([starts[1:], starts.new_tensor([len(v)])])
+    total = torch.cumsum(c, 0)
+    del c
+    merged = total[ends - 1] - torch.where(starts > 0, total[starts - 1], 0)
+    return v[starts], merged
+
+
 def count_kmers_device(
     seqs, k: int, chunk_bases: int = 8 << 20, row_len: int = 1 << 14,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", merge_elems: int = 1 << 26,
 ) -> tuple[np.ndarray, np.ndarray]:
     """``count_kmers`` on ``device``: identical (sorted unique uint64,
     int64 counts).
@@ -92,9 +117,9 @@ def count_kmers_device(
     its fragments joined by one N each, up to ``chunk_bases`` bases: one
     2-bit encoding and one pinned copy a chunk, and a window that spans a
     join holds the N and is invalid, as one past a fragment's end.  Each
-    chunk is counted on the device; the chunks' runs merge there (a stable
-    sort of their distinct values, counts summed a run), and only the
-    result comes back.
+    chunk is counted on the device; the chunks' runs merge there
+    (``merge_runs``) in groups of at least ``merge_elems`` values and at
+    the end, and only the result comes back.
     """
     dev = resolve_device(device)
     step = row_len - (k - 1)
@@ -105,11 +130,13 @@ def count_kmers_device(
     uniq_chunks: list[Tensor] = []
     count_chunks: list[Tensor] = []
     frags: list[bytes] = []
-    stats = {"device": str(dev), "chunks": 0, "rows": 0, "kmers": 0}
+    stats = {"device": str(dev), "chunks": 0, "rows": 0, "kmers": 0, "merges": 0}
     used = 0
+    merged = 0   # values in the run of the last merge, uniq_chunks[0]
+    pending = 0  # values in the chunks' runs after it
 
     def flush():
-        nonlocal used
+        nonlocal used, merged, pending
         if not frags:
             return
         joined = encode_2bit(b"N".join(frags))
@@ -124,6 +151,13 @@ def count_kmers_device(
         keep = first[:n]
         uniq_chunks.append(sorted_vals[:n][keep])
         count_chunks.append(counts[:n][keep])
+        del sorted_vals, counts, first, keep
+        pending += len(uniq_chunks[-1])
+        if pending >= max(merge_elems, merged) and len(uniq_chunks) > 1:
+            run = merge_runs(uniq_chunks, count_chunks)
+            uniq_chunks[:], count_chunks[:] = [run[0]], [run[1]]
+            merged, pending = len(run[0]), 0
+            stats["merges"] += 1
         stats["chunks"] += 1
         stats["rows"] += len(frags)
         stats["kmers"] += n
@@ -147,13 +181,7 @@ def count_kmers_device(
     if not uniq_chunks:
         KMER_DEVICE_STATS["distinct"] = 0
         return np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.int64)
-    vals, order = torch.sort(torch.cat(uniq_chunks), stable=True)
-    counts = torch.cat(count_chunks)[order]
-    first = torch.ones_like(vals, dtype=torch.bool)
-    first[1:] = vals[1:] != vals[:-1]
-    starts = torch.nonzero(first).squeeze(1)
-    ends = torch.cat([starts[1:], starts.new_tensor([len(vals)])])
-    total = torch.cumsum(counts, 0)
-    merged = total[ends - 1] - torch.where(starts > 0, total[starts - 1], 0)
-    KMER_DEVICE_STATS["distinct"] = len(starts)
-    return vals[starts].cpu().numpy().astype(np.uint64), merged.cpu().numpy()
+    vals, counts = merge_runs(uniq_chunks, count_chunks)
+    del uniq_chunks[:], count_chunks[:]
+    KMER_DEVICE_STATS["distinct"] = len(vals)
+    return vals.cpu().numpy().astype(np.uint64), counts.cpu().numpy()

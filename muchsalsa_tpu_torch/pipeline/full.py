@@ -37,6 +37,10 @@ from muchsalsa_tpu_torch.pipeline.stages import StageRunner
 
 SENTINEL = "__sentinel__\t1\t0\t1\t+\t__sentinel__\t1\t0\t1\t0\t1\t0"
 
+# the last run's DEVICE_MAP_STATS of each map stage that mapped on the
+# device, by the stage's PAF name
+MAP_STAGE_STATS: dict[str, dict] = {}
+
 
 def _read_pairs(path1: Path, path2: Path | None):
     """Illumina mates as (R1, R2) byte pairs, R2 empty where the second file
@@ -85,6 +89,7 @@ def run_full_pipeline(
     device_dbg = (on_card and unitig_k <= 31) if device_dbg is None else device_dbg
     device_scrub = on_card if device_scrub is None else device_scrub
 
+    MAP_STAGE_STATS.clear()
     out = Path(outdir)
     out.mkdir(parents=True, exist_ok=True)
     runner = StageRunner(out)
@@ -186,6 +191,7 @@ def run_full_pipeline(
         if device_map and "total_reads" in DEVICE_MAP_STATS:
             # reads mapped on the host instead: a high rate means the
             # device run quietly became a host run
+            MAP_STAGE_STATS[out_paf.name] = dict(DEVICE_MAP_STATS)
             tot = DEVICE_MAP_STATS["total_reads"]
             ovf = DEVICE_MAP_STATS["overflow_reads"]
             with open(report, "a") as fh:

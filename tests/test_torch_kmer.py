@@ -113,6 +113,26 @@ def test_count_kmers_device_long_read_fragmentation():
     assert KMER_DEVICE_STATS["rows"] == 11  # ceil((5000 - 20) / (512 - 20))
 
 
+@pytest.mark.parametrize("merge_elems", (1, 20_000, 1 << 26))
+def test_count_kmers_device_merges_runs_in_groups(merge_elems):
+    """Many small chunks whose runs merge in groups of at least
+    ``merge_elems`` values and of the last merge's size (so a log number of
+    merges; 1 << 26: none before the end) give ``count_kmers``'s values
+    and counts exactly."""
+    seqs, k = mixed_reads(), 25
+    host_u, host_c = count_kmers(seqs, k)
+    got_u, got_c = count_kmers_device(seqs, k, chunk_bases=1 << 11, row_len=1 << 9,
+                                      device="cpu", merge_elems=merge_elems)
+    np.testing.assert_array_equal(got_u, host_u)
+    np.testing.assert_array_equal(got_c, host_c)
+    stats = dict(KMER_DEVICE_STATS)
+    assert stats["chunks"] > 40 and stats["distinct"] == len(host_u)
+    if merge_elems < 1 << 26:
+        assert 1 < stats["merges"] <= stats["chunks"].bit_length()
+    else:
+        assert stats["merges"] == 0
+
+
 def test_count_kmers_device_empty():
     u, c = count_kmers_device([], 25, device="cpu")
     assert len(u) == 0 and len(c) == 0
