@@ -25,11 +25,14 @@ exits non-zero without its last line:
              matters), and the two-anchor input that only the order (k, l)
              leaves unchained (scores 500 and 700); bit-equal required;
              median CUDA-event times of both;
-3. golden  — the port's assemble(device="cuda", min_device_batch=1) on the
-             dataset of tests/test_golden.py must reproduce its sha256s,
-             chain_dp launched;
+3. golden  — the port's assemble(device="cuda", min_device_batch=1, both
+             placement gates at 0) on the dataset of tests/test_golden.py
+             must reproduce its sha256s, chain_dp launched;
 4. core    — an E. coli-scale core (4.6 Mb, 15x) through the port on the
-             card (chain_dp launched), byte-identical to the host oracle:
+             card with both placement gates at 0 (the measured default
+             keeps phase 2, edges, on the host at this size; the line gives
+             the match rows and 2 x graph size and the default's decision
+             for each), chain_dp launched, byte-identical to the host oracle:
              the port's assemble with config.device.use_device unset, which
              runs the host edges and chaining and puts nothing on the card;
              the packed batches the port's run gave chain_dp are kept;
@@ -64,8 +67,8 @@ exits non-zero without its last line:
              mapper.refine on: every device leg on the card (mapping, the
              k-mer filter's counting, the DBG extension table, the scrub's
              all-vs-all), then all four on the host as the oracle
-             (refinement and the core on the card in both); the filtered
-             reads, unitigs, scrubbed reads, three PAFs and
+             (refinement and the core's chaining on the card in both); the
+             filtered reads, unitigs, scrubbed reads, three PAFs and
              03.assembly.unpolished.fa byte-identical, at least one contig,
              chain_dp and myers_full launched on the device run, k-mer
              chunks and DBG extension rows counted on the card, at least one
@@ -90,7 +93,8 @@ exits non-zero without its last line:
              ``sharded_myers`` on phase 7's regions bit-equal to one launch
              of each kernel (two launches each, the chain stats equal to a
              host sum), phase 4's core byte-identical to phase 4's port run
-             (``mesh_devices`` 2, two ``chain_dp`` launches a bucket) and
+             (``mesh_devices`` 2, two ``chain_dp`` launches a bucket; here and
+             in the processes below both placement gates at 0) and
              phase 8's reads mapped on the card identical to host mapping
              (meshed, no tier 2); then ``scripts/torch_distributed_core.py``
              in two gloo processes on the card, each writing phase 4's port
@@ -103,15 +107,16 @@ exits non-zero without its last line:
              package's ``scripts/scale_run.py`` inputs made by the port's
              ``make_scale_inputs`` (12x nanopore reads at 7 % noise, a
              fifth with junk tails, 30x Illumina pairs) through the port's
-             ``full`` with every leg on the card (``run_scale_row``); the
-             three inputs' and the assembly's sha256 and the contig
-             statistics equal to the row's, chain_dp launched, no jax
-             loaded; stage walls, peak CUDA memory, the legs' counters and
-             each map stage's overflow and tier-2 reads.
+             ``full`` with every leg on the card and both placement gates
+             at 0 (``run_scale_row``); the three inputs' and the assembly's
+             sha256 and the contig statistics equal to the row's, chain_dp
+             launched, no jax loaded; stage walls, peak CUDA memory, the
+             legs' counters and each map stage's overflow and tier-2 reads.
 
-Then the kernel summary line (each kernel's launches on its path, error,
-kernel and plain times, bound and what bounds it, and the library yardstick:
-none of the five functions is one PyTorch call; chain_scan, the scan alone
+Then the whole run's seconds (``done``), the kernel summary line (each
+kernel's launches on its path, error, kernel and plain times, bound and
+what bounds it, and the library yardstick: none of the five functions is
+one PyTorch call; chain_scan, the scan alone
 over a given matrix, is on no path of the port since chain_dp fused it with
 the compatibility build, so its launches are 0), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -157,6 +162,9 @@ DP_PAIR_OPS = 35               # float64 compares and adds of one chain_dp pair 
 WINDOW_WORDS = (2, 4, 8)
 BANDS = (128, 256)
 REFINE_BAND = 256
+# both placement gates at 0: the card path at any size, as a phase that
+# holds a kernel must launch it
+GATES_OPEN = {"edges_device_min_rows": 0, "chain_device_min_problems": 0}
 
 
 def load_test_module(name: str):
@@ -812,9 +820,9 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
     """Phase 9: raw reads -> assembly through the port's run_full_pipeline
     with every device leg on the card (mapping, k-mer counting, the DBG
     extension table, the scrub's all-vs-all), against the same pipeline
-    with all four on the host; refinement and the core on the card in both.
-    Each leg must have run on the card and the scrub's guard must have
-    declined no subset.  Returns the chain_dp and myers_full launches of
+    with all four on the host; refinement and the core's chaining on the
+    card in both.  Each leg must have run on the card and the scrub's guard
+    must have declined no subset.  Returns the chain_dp and myers_full launches of
     the device run."""
     from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.device import resolve_device
@@ -910,7 +918,8 @@ def phase_scale(card: str, work: Path, device) -> None:
     from muchsalsa_tpu_torch.testing.scale import run_scale_row
 
     t0 = time.perf_counter()
-    record = run_scale_row(work / "scale", SCALE_MB, device=device, log=lambda line: None)
+    record = run_scale_row(work / "scale", SCALE_MB, device=device, log=lambda line: None,
+                           config=with_device_config(**GATES_OPEN))
     assert_no_reference("the port's scale row")
     emit("scale", card=card, phase_s=time.perf_counter() - t0,
          **{k: record[k] for k in (
@@ -990,6 +999,9 @@ def phase_multi(card: str, work: Path, core_args, core_wall: float, dp_batch, re
 
     cuda0 = torch.device("cuda", 0)
     two = mesh_mod.make_mesh(devices=[cuda0, cuda0])
+    gates_open = with_device_config(**GATES_OPEN)
+    gates_json = work / "gates_open.json"
+    gates_open.save(gates_json)
     row: dict = {"card": card, "label": "2 shards / 2 processes on one card"}
 
     # a. the chaining kernel, two shards against one launch
@@ -1048,7 +1060,7 @@ def phase_multi(card: str, work: Path, core_args, core_wall: float, dp_batch, re
     try:
         chain_dp.launches = 0
         t0 = time.perf_counter()
-        meshed = assemble(*core_args, out2, device="cuda")
+        meshed = assemble(*core_args, out2, gates_open, device="cuda")
         meshed_wall = time.perf_counter() - t0
         core_launches = chain_dp.launches
         t0 = time.perf_counter()
@@ -1083,7 +1095,8 @@ def phase_multi(card: str, work: Path, core_args, core_wall: float, dp_batch, re
     # b. the core in two processes
     paf, unitigs_fa, reads_fa = core_args
     procs_wall = run_group("torch_distributed_core.py", 2,
-                           lambda pid: (paf, unitigs_fa, reads_fa, work / "ecoli" / f"proc{pid}"),
+                           lambda pid: (paf, unitigs_fa, reads_fa, work / "ecoli" / f"proc{pid}",
+                                        "--config", gates_json),
                            timeout=300)
     same = {f"p{pid}/{n}": (work / "ecoli" / f"proc{pid}" / n).read_bytes()
             == (port_out / n).read_bytes() for pid in range(2) for n in OUTPUTS}
@@ -1147,7 +1160,8 @@ def main() -> int:
          device=torch.cuda.get_device_name(0), python=sys.version.split()[0])
 
     from muchsalsa_tpu_torch import kernels
-    from muchsalsa_tpu_torch.assemble.driver import assemble
+    from muchsalsa_tpu_torch.assemble.driver import _on_device, assemble
+    from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.ops import chaining_torch
     from muchsalsa_tpu_torch.ops.chain_scan import chain_dp, chain_scan, compat_init_batch
     from muchsalsa_tpu_torch.state import pack_batch, unpack_batch
@@ -1211,7 +1225,7 @@ def main() -> int:
     paths = write_simulation(sim, work / "golden" / "data")
     chain_dp.launches = 0
     assemble(paths["paf"], paths["unitigs"], paths["reads"], work / "golden" / "out",
-             with_device_config(min_device_batch=1), device="cuda")
+             with_device_config(min_device_batch=1, **GATES_OPEN), device="cuda")
     golden_launches = chain_dp.launches
     got = {n: hashlib.sha256((work / "golden" / "out" / n).read_bytes()).hexdigest()
            for n in GOLDEN}
@@ -1241,14 +1255,17 @@ def main() -> int:
     chaining_torch.chain_dp = keep_batch
     chain_dp.launches = chain_scan.launches = 0
     t0 = time.perf_counter()
-    port = assemble(*args, work / "ecoli" / "port", device="cuda")
+    port = assemble(*args, work / "ecoli" / "port", with_device_config(**GATES_OPEN),
+                    device="cuda")
     port_wall = time.perf_counter() - t0
     chaining_torch.chain_dp = chain_dp
     core_launches = chain_dp.launches
     core_scan_launches = chain_scan.launches
     assert_no_reference("the port's assembly")
-    if core_launches == 0:
-        raise AssertionError("the E. coli-scale core never launched chain_dp")
+    if core_launches == 0 or not all(port["timer"].counters[k] for k in (
+            "edges_on_device", "chaining_on_device")):
+        raise AssertionError("the E. coli-scale core did not run on the card: "
+                             f"{core_launches} chain_dp launches, {port['timer'].counters}")
 
     t0 = time.perf_counter()
     host = assemble(*args, work / "ecoli" / "host", with_device_config(use_device=False),
@@ -1262,7 +1279,16 @@ def main() -> int:
     counters = port["timer"].counters
     batches = {int(k.removeprefix("chain_batch_k")): v
                for k, v in counters.items() if k.startswith("chain_batch_k")}
+    placement = {k: counters[k] for k in ("edges_on_device", "chaining_on_device")}
+    dcfg = Config().device
+    default_placement = {
+        "edges_on_device": _on_device(Config(), counters["match_rows"],
+                                      dcfg.edges_device_min_rows, torch.device("cuda")),
+        "chaining_on_device": _on_device(Config(), 2 * counters["graph_size"],
+                                         dcfg.chain_device_min_problems, torch.device("cuda"))}
     emit("core", card=card, genome_mb=4.6, coverage=15.0, reads=n_reads,
+         **placement, match_rows=counters["match_rows"],
+         two_graph_size=2 * counters["graph_size"], default_placement=default_placement,
          simulate_s=sim_s, port_wall_s=port_wall, host_wall_s=host_wall,
          port_stages=port["timer"].stages, host_stages=host["timer"].stages,
          chain_device_problems=counters["chain_device_problems"],
@@ -1357,6 +1383,7 @@ def main() -> int:
             "bound_by": slice_rows[name]["bound_by"],
             "library_ms": None,
         })
+    emit("done", card=card, seconds=time.perf_counter() - _T0)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

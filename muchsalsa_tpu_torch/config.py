@@ -65,7 +65,7 @@ class ConsensusConfig:
 
 @dataclass(frozen=True)
 class MapperConfig:
-    """On-TPU minimizer seeding + chaining (minimap2-stage replacement)."""
+    """Device minimizer seeding + chaining (minimap2-stage replacement)."""
 
     k: int = 15
     w: int = 5
@@ -100,27 +100,43 @@ class PipelineConfig:
     unitig_iqr_multiplier: float = 1.5
 
 
+# A gate threshold above any count: the phase stays on the host on a card
+# (on the CPU the gates always open, as in the JAX package); 0 forces it.
+GATE_CLOSED = 1 << 62
+
+
 @dataclass(frozen=True)
 class DeviceConfig:
-    """Execution-placement knobs for the JAX compute path."""
+    """Execution-placement knobs of the port's device phases.
 
-    # Edges whose anchor count is <= this run through the vectorised
-    # device DP; bucket sizes are the padded anchor counts compiled.
+    The three size thresholds were measured on an NVIDIA H100 80GB HBM3 at
+    a 700.00 W power limit by ``scripts/torch_gate_crossover.py``: the
+    core's simulator at 15x, whole assemblies at 0.05-4.6 Mb and phase ②
+    alone at 4.6-140 Mb, each arm in fresh processes; ``min_device_batch``
+    on buckets whose problems hold the anchors the driver bins into them.
+    """
+
+    # Edges whose anchor count is <= this run through the fused device DP;
+    # the kernel's K (its padding), K <= 128.
     chain_buckets: tuple[int, ...] = (8, 16, 32, 64, 128)
-    # Minimum number of edges before shipping a bucket to the device
-    # (below this the host oracle is faster than dispatch overhead).
-    min_device_batch: int = 32
-    # Minimum total chaining problems (edge x strand classes) before the
-    # whole chaining phase runs on the device: below this the one-time
-    # accelerator compile dominates any compute win (measured at E. coli
-    # scale, BASELINE.md round 2) — the same per-size hybrid reasoning
-    # as the reference's 150000-order heuristic switch (lg.cpp:362-366).
-    chain_device_min_problems: int = 200_000
-    # Minimum match-table rows before the scaffold all-pairs edge
-    # construction (phase ②) runs on the device — same per-size hybrid
-    # reasoning as chaining (the reference's second-hottest fan-out,
-    # MatchMap.cpp:161-224).
-    edges_device_min_rows: int = 500_000
+    # Minimum problems in a bucket before it goes to the device; a smaller
+    # bucket runs the host oracle's DP.  The largest per-bucket crossover of
+    # the card's pack, copies, chain_dp and reconstruction against the host
+    # DP, over five draws: K = 8 (problems of 1-8 anchors, as a 4.6 Mb core
+    # holds) from 16 problems, K = 16 to 128 from 1.
+    min_device_batch: int = 16
+    # Minimum 2 x graph.size (an upper bound on the (edge, strand class)
+    # problems) before phase ③ chaining runs on the device; 0 forces it.
+    # The card's chaining stage beat the host oracle's at every size
+    # measured, so this is the smallest count measured (2,348 at 0.05 Mb,
+    # rounded down); the crossover lies below it.
+    chain_device_min_problems: int = 2_300
+    # Minimum match-table rows before phase ② edges runs on the device.
+    # The card's edges stage lost to the host's at every size measured,
+    # 572 to 1,615,619 rows (0.05-140 Mb): no crossover was found, so the
+    # gate stays closed on a card and the device edges run only when forced
+    # (0).
+    edges_device_min_rows: int = GATE_CLOSED
     # Data-parallel mesh axis name for read streaming.
     data_axis: str = "reads"
     use_device: bool = True

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from muchsalsa_tpu_torch.config import DeviceConfig
 from muchsalsa_tpu_torch.matching.store import EdgeMatches, MatchStore
 from muchsalsa_tpu_torch.ops.chaining import (
     ChainResult, EdgeContext, GatheredMatches, finalize_paths, max_pairwise_paths)
@@ -81,8 +82,8 @@ def chaining_phase_device(
     store: MatchStore,
     edge_matches: EdgeMatches,
     wiggle_room: int,
-    chain_buckets: tuple[int, ...] = (8, 16, 32, 64, 128),
-    min_device_batch: int = 32,
+    chain_buckets: tuple[int, ...] = DeviceConfig.chain_buckets,
+    min_device_batch: int = DeviceConfig.min_device_batch,
     *,
     device: str | torch.device,
     mesh: Mesh | None = None,

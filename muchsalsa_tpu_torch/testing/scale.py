@@ -192,10 +192,10 @@ def _cuda_peak(on_card: bool):
 
 def run_scale_row(out: str | Path, genome_mb: float, coverage: float = 12.0,
                   illu_cov: float = 30.0, *, device: str | torch.device, host: bool = False,
-                  keep_batches: list | None = None, log=print) -> dict:
+                  keep_batches: list | None = None, log=print, config=None) -> dict:
     """Write a row's inputs into ``out`` and run the port's ``full`` on them
-    into ``out/full_out`` with ``Config()``, as ``scripts/scale_run.py``
-    runs the JAX package's; ``log`` gets that script's ``[scale_run]``
+    into ``out/full_out`` with ``config`` (default ``Config()``, as
+    ``scripts/scale_run.py`` runs the JAX package's); ``log`` gets that script's ``[scale_run]``
     lines.  ``host`` puts the k-mer, DBG, scrub and mapping legs on the
     host, as its ``--host`` does; otherwise they follow ``device`` (on the
     card, on; on the CPU, the map stages on the CPU's device mapper, the
@@ -243,8 +243,8 @@ def run_scale_row(out: str | Path, genome_mb: float, coverage: float = 12.0,
         with _cuda_peak(dev.type == "cuda") as peak:
             t0 = time.perf_counter()
             final = run_full_pipeline(inputs["illu1.fa"], inputs["illu2.fa"],
-                                      inputs["nanopore.fa"], full_out, Config(),
-                                      device=dev, **legs)
+                                      inputs["nanopore.fa"], full_out,
+                                      config or Config(), device=dev, **legs)
             full_s = time.perf_counter() - t0
     finally:
         chaining_torch.chain_dp = chain_dp

@@ -2,12 +2,14 @@
 
 TPU equivalent of the reference's TRACE macro / wall-clock prints
 (``include/ms/Debug.h:28-32``, ``pipeline/pipeline.sh:110``): per-stage
-host timers that can be dumped as JSON.
+host timers that can be dumped as JSON, plus optional ``torch.profiler``
+trace capture around a stage.
 
 The port's copy of ``StageTimer`` from ``muchsalsa_tpu/utils/timing.py``
 (:19-45) and the host half of its ``memory_stats`` (:48-58); the device
-half and ``jax_profile`` stay behind (the port's driver reads the card's
-peak with ``torch.cuda.max_memory_allocated``).
+half stays behind (the port's driver reads the card's peak with
+``torch.cuda.max_memory_allocated``), and ``torch_profile`` takes the place
+of ``jax_profile`` (:71-83).
 """
 
 from __future__ import annotations
@@ -61,3 +63,22 @@ def memory_stats() -> dict:
     except Exception:
         pass
     return out
+
+
+@contextlib.contextmanager
+def torch_profile(outdir: str | None, device):
+    """Capture a ``torch.profiler`` trace around a block when ``outdir`` is
+    set: CPU activity, and the card's too when ``device`` is one.  The
+    Chrome trace goes to ``outdir/trace_<pid>_<ns>.json``."""
+    if not outdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(outdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(outdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -10,7 +10,8 @@ sharded over this process's own visible cards where it sees several: a
 launcher that gives each process its own card sets ``CUDA_VISIBLE_DEVICES``.
 
     PYTHONPATH=. python3 scripts/torch_distributed_core.py <pid> <nprocs> \\
-        <host:port> <mapped.paf> <unitigs.fa> <reads.fa> <outdir> [--device cuda|cpu]
+        <host:port> <mapped.paf> <unitigs.fa> <reads.fa> <outdir> [--device cuda|cpu] \\
+        [--config config.json]
 
 The counterpart of ``scripts/distributed_core.py``; it imports nothing of
 JAX and fails if anything did.
@@ -33,11 +34,13 @@ def main() -> None:
     ap.add_argument("reads")
     ap.add_argument("outdir", type=Path)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--config", help="JSON config file (default: the default config)")
     args = ap.parse_args()
 
     import torch.distributed as dist
 
     from muchsalsa_tpu_torch.assemble.driver import assemble
+    from muchsalsa_tpu_torch.config import DEFAULT_CONFIG, Config
     from muchsalsa_tpu_torch.parallel.mesh import init_distributed, process_count
     from muchsalsa_tpu_torch.pipeline.scrubber import torch_record_allgather
 
@@ -46,7 +49,8 @@ def main() -> None:
         if process_count() != args.nprocs:
             raise SystemExit(f"{process_count()} processes in the group, {args.nprocs} asked")
         args.outdir.mkdir(parents=True, exist_ok=True)
-        summary = assemble(args.paf, args.unitigs, args.reads, args.outdir,
+        config = Config.load(args.config) if args.config else DEFAULT_CONFIG
+        summary = assemble(args.paf, args.unitigs, args.reads, args.outdir, config,
                            process_index=args.pid, process_count=args.nprocs,
                            allgather=torch_record_allgather, device=args.device)
     finally:

@@ -134,9 +134,8 @@ def test_port_edges_on_card_match_host(cuda, tmp_path):
             getattr(got, field.name), getattr(ref, field.name), err_msg=field.name)
 
 
-def test_port_golden_on_card(cuda, tmp_path):
-    from muchsalsa_tpu_torch.assemble.driver import assemble
-    from muchsalsa_tpu_torch.config import Config
+def golden_inputs(tmp_path):
+    """The golden dataset's three inputs and its sha256 values."""
     from muchsalsa_tpu_torch.testing.simulate import simulate, write_simulation
 
     # by path: another installed package named ``tests`` may shadow this
@@ -145,19 +144,85 @@ def test_port_golden_on_card(cuda, tmp_path):
         "test_golden", Path(__file__).with_name("test_golden.py"))
     test_golden = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(test_golden)
-    GOLDEN = test_golden.GOLDEN
     sim = simulate(np.random.default_rng(20260817), genome_length=60_000,
                    unitig_length=1_100, unitig_gap=300, read_length=6_000,
                    coverage=9.0, both_strands=True)
     paths = write_simulation(sim, tmp_path / "data")
+    return (paths["paf"], paths["unitigs"], paths["reads"]), test_golden.GOLDEN
+
+
+def device_config(**fields):
+    from muchsalsa_tpu_torch.config import Config
+
     cfg = Config()
-    cfg = dataclasses.replace(cfg, device=dataclasses.replace(cfg.device, min_device_batch=1))
+    return dataclasses.replace(cfg, device=dataclasses.replace(cfg.device, **fields))
+
+
+def output_bytes(out):
+    return {n: (out / n).read_bytes() for n in ("temp_1.target.fa", "temp_1.query.fa",
+                                                "temp_1.align.paf")}
+
+
+def test_port_golden_on_card(cuda, tmp_path):
+    from muchsalsa_tpu_torch.assemble.driver import assemble
+
+    inputs, GOLDEN = golden_inputs(tmp_path)
+    # gates 0: the golden size is below the card's crossovers
+    cfg = device_config(min_device_batch=1, edges_device_min_rows=0, chain_device_min_problems=0)
     before = chain_dp.launches
-    assemble(paths["paf"], paths["unitigs"], paths["reads"], tmp_path / "out", cfg,
-             device=cuda)
+    assemble(*inputs, tmp_path / "out", cfg, device=cuda)
     assert chain_dp.launches > before
     got = {n: hashlib.sha256((tmp_path / "out" / n).read_bytes()).hexdigest() for n in GOLDEN}
     assert got == GOLDEN
+
+
+def test_port_gates_on_card(cuda, tmp_path):
+    """Both sides of each gate on the golden input at the default config:
+    closed, no ``chain_dp`` launch; at 0, launched; the outputs the same."""
+    from muchsalsa_tpu_torch.assemble.driver import _on_device, assemble
+
+    inputs, GOLDEN = golden_inputs(tmp_path)
+    outs, placed = {}, {}
+    for name, thr in (("closed", 10**9), ("open", 0), ("default", None)):
+        gates = {} if thr is None else dict(edges_device_min_rows=thr,
+                                            chain_device_min_problems=thr)
+        cfg = device_config(**gates)
+        before = chain_dp.launches
+        r = assemble(*inputs, tmp_path / name, cfg, device=cuda)
+        c = r["timer"].counters
+        placed[name] = (c["edges_on_device"], c["chaining_on_device"],
+                        chain_dp.launches - before)
+        outs[name] = output_bytes(tmp_path / name)
+        if thr is None:
+            expect = (_on_device(cfg, c["match_rows"], cfg.device.edges_device_min_rows, cuda),
+                      _on_device(cfg, 2 * c["graph_size"],
+                                 cfg.device.chain_device_min_problems, cuda))
+            assert placed[name][:2] == tuple(map(int, expect))
+    assert placed["closed"] == (0, 0, 0)
+    assert placed["open"][:2] == (1, 1) and placed["open"][2] > 0
+    assert outs["closed"] == outs["open"] == outs["default"]
+    got = {n: hashlib.sha256(outs["open"][n]).hexdigest() for n in GOLDEN}
+    assert got == GOLDEN
+
+
+def test_port_profile_on_card_traces_chain_dp(cuda, tmp_path, monkeypatch):
+    """``MS_TPU_PROFILE`` on the card: a Chrome trace of the chaining stage
+    that holds the ``chain_dp`` kernel; the outputs unchanged."""
+    import json
+
+    from muchsalsa_tpu_torch.assemble.driver import assemble
+
+    inputs, GOLDEN = golden_inputs(tmp_path)
+    cfg = device_config(min_device_batch=1, edges_device_min_rows=0, chain_device_min_problems=0)
+    assemble(*inputs, tmp_path / "plain", cfg, device=cuda)
+    monkeypatch.setenv("MS_TPU_PROFILE", str(tmp_path / "trace"))
+    assemble(*inputs, tmp_path / "traced", cfg, device=cuda)
+    traces = list((tmp_path / "trace").glob("*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("chain_dp" in k for k in kernels), sorted(set(kernels))[:20]
+    assert output_bytes(tmp_path / "traced") == output_bytes(tmp_path / "plain")
 
 
 ALIGN_SHAPES = [(P, M) for M in (31, 32, 33, 1000) for P in (1, 33, 512)] + [(33, 1100)]
