@@ -134,7 +134,6 @@ import json
 import os
 import shutil
 import socket
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -144,6 +143,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from muchsalsa_tpu_torch.utils.roofline import (
+    FP64_FLOPS, HBM_BYTES_PER_S, align_bound, card_int32_rate, dp_bound, median_ms, scan_bound)
+
 OUTPUTS = ("temp_1.target.fa", "temp_1.query.fa", "temp_1.align.paf")
 BUCKETS = (8, 16, 32, 64, 128)
 PHASE2_SHAPES = [(B, K) for K in BUCKETS for B in (1, 33, 4096)] + [(65536, 32)]
@@ -151,14 +153,6 @@ ALIGN_M = (31, 32, 33, 200, 1000, 4096, 9000)
 ALIGN_P = (1, 33, 4096)
 LONG_M = 9000        # past the exact kernel's register classes: that kernel only, small P
 LONG_P = (1, 33)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP64_FLOPS = 34e12             # H100 SXM data sheet, outside the tensor cores
-INT32_OPS_PER_CLK_SM = 64      # Hopper's int32 issue rate
-MYERS_OPS = 15                 # int32 ops of one (column, word) Myers step
-WAVEFRONT_OPS = 3              # int32 issue slots of one wavefront band cell: the cost's
-                               # compare, then min(S[x+1] + 2, left) and min(S[x] + cost, .),
-                               # one DPX add-min each on sm_90a (the recurrence's 5 ops)
-DP_PAIR_OPS = 35               # float64 compares and adds of one chain_dp pair test
 WINDOW_WORDS = (2, 4, 8)
 BANDS = (128, 256)
 REFINE_BAND = 256
@@ -206,75 +200,6 @@ def emit(phase: str, **fields) -> None:
     """One JSON line of a phase; ``t_s`` is the seconds since the script
     started, so that each phase's share of the run can be read."""
     print(json.dumps({"phase": phase, **fields, "t_s": time.perf_counter() - _T0}), flush=True)
-
-
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call, by CUDA events, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
-    """The least time (ms) for moving ``nbytes`` at the card's memory rate
-    and doing ``ops`` at ``ops_per_s``, and which of the two sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def scan_bound(B: int, K: int) -> tuple[float, str]:
-    """chain_scan at (B, K): compat (1 byte a pair), init and scores (f64),
-    backpointers (int32); a compare and an add in f64 per pair k < l."""
-    return bound(B * K * K + B * K * (8 + 8 + 4), B * K * (K - 1), FP64_FLOPS)
-
-
-def dp_bound(offsets: torch.Tensor, K: int) -> tuple[float, str]:
-    """chain_dp on a packed batch of B problems of at most K anchors: its N
-    anchors' 13 float64 fields and flag byte and the B + 1 int32 offsets
-    read once, every slot's score (f64) and backpointer (int32) written
-    once; DP_PAIR_OPS float64 ops a pair test of two anchors k < l of a
-    problem and a compare and an add a scan candidate."""
-    n = (offsets[1:] - offsets[:-1]).double()
-    B, N = n.numel(), float(n.sum())
-    pairs = float((n * (n - 1) / 2).sum())
-    return bound(N * (13 * 8 + 1) + 4 * (B + 1) + B * K * (8 + 4), pairs * (DP_PAIR_OPS + 2),
-                 FP64_FLOPS)
-
-
-def align_bound(name: str, args, kw: dict, int32_ops_per_s: float) -> tuple[float, str]:
-    """Bound of one edit-distance call on these inputs: every code and
-    length read once, the distances written once; the int32 ops of the
-    work these lengths need (the kernels stop at each problem's end; a
-    wavefront band cell is ``WAVEFRONT_OPS`` issue slots)."""
-    from muchsalsa_tpu_torch.ops.myers_torch import geometry
-
-    q, ql, t, tl = args
-    m, n = ql.long(), tl.long()
-    P, M, N = q.shape[0], q.shape[1], t.shape[1]
-    nbytes = q.numel() + t.numel() + 12 * P
-    if name == "myers_full":
-        ops = MYERS_OPS * int(((m + 31) // 32 * n).sum())
-    elif name == "myers_banded":
-        wb = kw["window_words"]
-        klo, khi, _h = geometry(wb)
-        diff = n - m
-        in_band = (diff - klo >= 32) & (khi - diff >= 32) & (m > 0) & (n > 0)
-        ops = MYERS_OPS * wb * int(torch.where(in_band, n, 0).sum())
-    else:
-        band = kw["band"]
-        ok = ((n - m).abs() < band) & (m > 0) & (n > 0)
-        ops = WAVEFRONT_OPS * band * int(torch.where(ok, m, 0).sum())
-    return bound(nbytes, ops, int32_ops_per_s)
 
 
 def compare_scan(c: torch.Tensor, i: torch.Tensor, kind: str, timed: bool) -> dict:
@@ -1176,11 +1101,7 @@ def main() -> int:
          # ptxas puts each function's stack and spill bytes on a line of their own
          ptxas=[ln.strip() for ln in kernels.build_log.splitlines()
                 if "ptxas" in ln or "spill" in ln])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-    int32_ops_per_s = INT32_OPS_PER_CLK_SM * sms * clock_mhz * 1e6
+    sms, clock_mhz, int32_ops_per_s = card_int32_rate()
     emit("rates", card=card, sms=sms, clocks_max_sm_mhz=clock_mhz,
          int32_ops_per_s=int32_ops_per_s, hbm_bytes_per_s=HBM_BYTES_PER_S,
          fp64_flops=FP64_FLOPS)

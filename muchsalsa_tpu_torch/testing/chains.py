@@ -17,6 +17,9 @@ Host numpy only, from a seed: per-field batches in the layout of
   the nanopore range, so that their corrected range inverts (hi < lo) and
   many share a corrected start: the compatibility of (k, l) then differs
   from that of (l, k).
+
+``example_batch`` is the port's copy of ``__graft_entry__.py::_example_batch``,
+the batch of the JAX package's chaining benchmark, as numpy arrays.
 """
 
 from __future__ import annotations
@@ -133,3 +136,28 @@ def inverted_pair_batch(K: int = 8) -> dict[str, np.ndarray]:
     out["valid"] = out["v_dir"].copy()
     out["cls_dir"] = np.ones(1, dtype=bool)
     return out
+
+
+def example_batch(B: int, K: int, dtype, seed: int = 0) -> dict[str, np.ndarray]:
+    """The (B, K) chaining batch of ``__graft_entry__.py::_example_batch``:
+    the same draws of ``default_rng(seed)`` in the same order, every anchor
+    valid, every strand class forward; numpy arrays of ``dtype`` (bool
+    masks)."""
+    rng = np.random.default_rng(seed)
+    ns = rng.integers(0, 5000, (B, K)).astype(dtype)
+    span = rng.integers(400, 1200, (B, K)).astype(dtype)
+    is_ = rng.integers(0, 200, (B, K)).astype(dtype)
+    return {
+        "v_ns": ns, "v_ne": ns + span,
+        "w_ns": ns, "w_ne": ns + span,
+        "v_is": is_, "v_ie": is_ + span,
+        "w_is": is_, "w_ie": is_ + span,
+        "ov_s": is_ + 10, "ov_e": is_ + span - 10,
+        "v_rr": np.ones((B, K), dtype=dtype),
+        "w_rr": np.ones((B, K), dtype=dtype),
+        "score": rng.integers(400, 1500, (B, K)).astype(dtype),
+        "v_dir": rng.integers(0, 2, (B, K)).astype(bool),
+        "w_dir": rng.integers(0, 2, (B, K)).astype(bool),
+        "valid": np.ones((B, K), dtype=bool),
+        "cls_dir": np.ones(B, dtype=bool),
+    }

@@ -59,7 +59,6 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 _TURN = r"""
 import hashlib, json, statistics, sys, time
@@ -300,8 +299,10 @@ def main(argv: list[str] | None = None) -> int:
             row = json.loads(proc.stdout.strip().splitlines()[-1])
             hashes.add(row["sha256"])
             emit(turn=turn, tree="base" if tree == args.base else "this", **row)
+    from muchsalsa_tpu_torch.utils.roofline import HBM_BYTES_PER_S, dp_bytes
+
     B, K = info["B"], info["K"]
-    nbytes = info["anchors"] * (13 * 8 + 1) + 4 * (B + 1) + B * K * (8 + 4)
+    nbytes = dp_bytes(info["anchors"], B, K)
     emit(card=card, B=B, K=K, anchors=info["anchors"], bytes=nbytes,
          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", identical=len(hashes) == 1)
     if args.out:

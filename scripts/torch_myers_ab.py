@@ -24,15 +24,15 @@ wavefront`` each turn also counts, in its library's SASS (``cuobjdump
 -sass``), the instructions of every row loop of the band-256 kernel, per
 band cell, its loads, predicated loads and selects.
 
-The summary line holds the batch's bound: the int32 ops at 64 ops per clock
-per SM and the card's maximum SM clock, or the bytes at 3.35 TB/s,
-whichever is larger.  A Myers (column, word) step is 15 ops (the banded
-kernel steps its 8 window words over the columns of the problems inside
-the band); a wavefront band cell is 3 issue slots (the cost's compare, then
-two DPX add-mins, which do the recurrence's other 4 ops), and the line also
-gives the bound at the 10 ops a cell charged before the kernel's redesign
-(``bound10_ms``), the cells, and the share of rows that read their target
-window with no bounds test.  Needs one NVIDIA GPU.
+The summary line holds the batch's bound (``utils/roofline.py::align_work``
+and ``bound``): the int32 ops at 64 ops per clock per SM and the card's
+maximum SM clock, or the bytes at 3.35 TB/s, whichever is larger.  A Myers
+(column, word) step is 15 ops (the banded kernel steps its 8 window words
+over the columns of the problems inside the band); a wavefront band cell is
+3 issue slots (the cost's compare, then two DPX add-mins, which do the
+recurrence's other 4 ops), and the line also gives the cells and the share
+of rows that read their target window with no bounds test.  Needs one
+NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -116,6 +116,7 @@ def refinement_batch(path: Path, kernel: str) -> dict:
     from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, SequenceStore, map_all
     from muchsalsa_tpu_torch.testing.simulate import add_noise, simulate
+    from muchsalsa_tpu_torch.utils.roofline import align_work
 
     t0 = time.perf_counter()
     sim = simulate(np.random.default_rng(20260819), genome_length=4_600_000, coverage=15.0,
@@ -135,15 +136,11 @@ def refinement_batch(path: Path, kernel: str) -> dict:
     q, ql, t, tl = packed
     m, n = ql.long(), tl.long()
     P, M, N = q.shape[0], q.shape[1], t.shape[1]
-    out = {"P": P, "M": M, "N": N, "bytes": q.numel() + t.numel() + 12 * P}
-    if kernel == "banded":
-        from muchsalsa_tpu_torch.ops.myers_torch import geometry
-
-        klo, khi, _h = geometry(8)
-        diff = n - m
-        in_band = (diff - klo >= 32) & (khi - diff >= 32) & (m > 0) & (n > 0)
-        out["ops"] = 15 * 8 * int(torch.where(in_band, n, 0).sum())
-    elif kernel == "wavefront":
+    name, kw = {"full": ("myers_full", {}), "banded": ("myers_banded", {"window_words": 8}),
+                "wavefront": ("banded_wavefront", {"band": 256})}[kernel]
+    nbytes, ops = align_work(name, packed, kw)
+    out = {"P": P, "M": M, "N": N, "bytes": nbytes, "ops": ops}
+    if kernel == "wavefront":
         B = 256
         diff = n - m
         ok = (diff.abs() < B) & (m > 0) & (n > 0)
@@ -153,10 +150,8 @@ def refinement_batch(path: Path, kernel: str) -> dict:
         e1 = torch.minimum(m, -klo)
         e2 = torch.maximum(e1, torch.minimum(m, N - klo - B + 1))
         rows = int(torch.where(ok, m, 0).sum())
-        out.update(cells=B * rows, ops=3 * B * rows, rows=rows,
+        out.update(cells=B * rows, rows=rows,
                    interior_rows=int(torch.where(ok, e2 - e1, 0).sum()))
-    else:
-        out["ops"] = 15 * int(((m + 31) // 32 * n).sum())
     out["batch_build_s"] = time.perf_counter() - t0
     return out
 
@@ -221,15 +216,16 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
+    from muchsalsa_tpu_torch.utils.roofline import bound, card_int32_rate
+
     if not torch.cuda.is_available():
         print("torch_myers_ab: no CUDA device", file=sys.stderr)
         return 1
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.splitlines()[0]
-    name, power, clock_mhz = (f.strip() for f in smi.split(","))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    name, power = (f.strip() for f in smi.split(","))
+    sms, clock_mhz, ops_per_s = card_int32_rate()
     lines = []
 
     def emit(**fields):
@@ -239,9 +235,7 @@ def main(argv: list[str] | None = None) -> int:
     with tempfile.TemporaryDirectory(prefix="ms_myers_ab_") as td:
         batch = Path(td) / "batch.pt"
         info = refinement_batch(batch, args.kernel)
-        ops_per_s = 64 * sms * float(clock_mhz) * 1e6
-        ops_ms = info["ops"] / ops_per_s * 1e3
-        bytes_ms = info["bytes"] / 3.35e12 * 1e3
+        bound_ms, bound_by = bound(info["bytes"], info["ops"], ops_per_s)
         hashes = set()
         for turn, tree in enumerate((args.base, REPO, REPO, args.base)):
             env = dict(os.environ, PYTHONPATH=str(tree.resolve()))
@@ -259,12 +253,10 @@ def main(argv: list[str] | None = None) -> int:
             emit(turn=turn, tree="base" if tree == args.base else "this", **row)
         extra = {}
         if args.kernel == "wavefront":
-            extra = {"bound10_ms": max(10 * info["cells"] / ops_per_s * 1e3, bytes_ms),
-                     "interior_row_share": info["interior_rows"] / info["rows"]}
+            extra = {"interior_row_share": info["interior_rows"] / info["rows"]}
         emit(card=f"{name}, {power} W", kernel=args.kernel, sms=sms,
-             clocks_max_sm_mhz=float(clock_mhz), **info,
-             bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms
-             else "bytes", **extra, identical=len(hashes) == 1)
+             clocks_max_sm_mhz=clock_mhz, **info, bound_ms=bound_ms, bound_by=bound_by,
+             **extra, identical=len(hashes) == 1)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("\n".join(lines) + "\n")

@@ -32,7 +32,6 @@ package was loaded.
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import subprocess
 import sys
@@ -66,24 +65,13 @@ def parse_args(argv: list[str]) -> dict:
             "device": device, "chain_batches": "--chain-batches" in argv}
 
 
-def load_smoke():
-    """``chip_smoke.py`` as a module: its bounds and timers."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def chain_figures(batches: list, device: torch.device) -> list[dict]:
     """Each kept batch's problems and anchors, ``chain_dp`` against its plain
     version, its median CUDA-event ms, its ``torch.profiler`` device ms a
-    call and its byte bound (``chip_smoke.dp_bound``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    call and its bound (``utils/roofline.py::dp_bound``)."""
     from muchsalsa_tpu_torch.ops.chain_scan import chain_dp, chain_dp_reference
+    from muchsalsa_tpu_torch.utils.roofline import device_ms, dp_bound, median_ms
 
-    smoke = load_smoke()
     rows = []
     for host, K, wiggle in batches:
         packed = [x.to(device) for x in host]
@@ -93,22 +81,14 @@ def chain_figures(batches: list, device: torch.device) -> list[dict]:
         equal = torch.equal(s, s_ref) and torch.equal(b, b_ref)
         err = float((s - s_ref).abs().max()) if s.numel() else 0.0
         del s_ref, b_ref
-        ms = smoke.median_ms(lambda: chain_dp(*packed, K, wiggle), reps=20)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                chain_dp(*packed, K, wiggle)
-            torch.cuda.synchronize()
-        averages = prof.key_averages()
-        col = ("self_device_time_total" if averages and hasattr(averages[0], "self_device_time_total")
-               else "self_cuda_time_total")
-        device_ms = sum(getattr(e, col) for e in averages
-                        if e.device_type == DeviceType.CUDA and "chain_dp" in e.key) / 5 / 1e3
-        bound_ms, bound_by = smoke.dp_bound(host[2], K)
+        ms = median_ms(lambda: chain_dp(*packed, K, wiggle), reps=20)
+        dev_ms = device_ms(lambda: chain_dp(*packed, K, wiggle), ("chain_dp",))
+        bound_ms, bound_by = dp_bound(host[2], K)
         rows.append({"K": K, "B": int(sizes.numel()), "problems": int((sizes > 0).sum()),
                      "anchors": int(host[2][-1]), "equal": equal, "max_abs_err": err,
-                     "ms": ms, "device_ms": device_ms or None, "bound_ms": bound_ms,
+                     "ms": ms, "device_ms": dev_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "event_share": bound_ms / ms,
-                     "device_share": bound_ms / device_ms if device_ms else None})
+                     "device_share": bound_ms / dev_ms if dev_ms else None})
         del packed
     return rows
 

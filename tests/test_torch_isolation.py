@@ -1,11 +1,12 @@
 """The port stands alone: it imports nothing of the JAX package and no JAX.
 
-- In a process of its own, with an import hook that refuses ``jax`` and
-  ``muchsalsa_tpu`` (and every submodule of either), every module of
-  ``muchsalsa_tpu_torch`` imports, and the port's ``assemble`` on the CPU
-  reproduces the golden sha256 values of tests/test_golden.py.
+- In a process of its own, with an import hook that refuses ``jax``,
+  ``muchsalsa_tpu``, ``bench`` and ``__graft_entry__`` (and every submodule
+  of each), every module of ``muchsalsa_tpu_torch`` imports, and the port's
+  ``assemble`` on the CPU reproduces the golden sha256 values of
+  tests/test_golden.py.
 - No source file of the port, no ``scripts/torch_*.py`` and not
-  ``chip_smoke.py`` holds an ``import`` or ``from`` of ``muchsalsa_tpu``.
+  ``chip_smoke.py`` holds an ``import`` or ``from`` of any of those.
 """
 
 import ast
@@ -21,7 +22,8 @@ from tests.test_golden import GOLDEN
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "muchsalsa_tpu_torch"
-REFUSED = ("jax", "muchsalsa_tpu")
+# the JAX package, JAX, and the JAX package's benchmark and driver entry at the root
+REFUSED = ("jax", "muchsalsa_tpu", "bench", "__graft_entry__")
 
 _BLOCKED_RUN = r"""
 import hashlib
