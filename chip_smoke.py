@@ -112,6 +112,9 @@ exits non-zero without its last line:
              sha256 and the contig statistics equal to the row's, chain_dp
              launched, no jax loaded; stage walls, peak CUDA memory, the
              legs' counters and each map stage's overflow and tier-2 reads.
+             Then the same row again (``scale_v1``) with the map stages'
+             ``build_device_tables`` refusing, as from ~60 Mb up: every map
+             stage on the v1 join (``v2`` False), the same hashes.
 
 Then the whole run's seconds (``done``), the kernel summary line (each
 kernel's launches on its path, error, kernel and plain times, bound and
@@ -836,17 +839,26 @@ def phase_full(card: str, work: Path, sim, reads, device) -> tuple[int, int]:
 SCALE_MB = 1.0  # phase 12's row of testing/scale.py::SCALE_ROWS
 
 
-def phase_scale(card: str, work: Path, device) -> None:
+def phase_scale(card: str, work: Path, device, v1: bool = False) -> None:
     """Phase 12: the ``SCALE_MB`` row of ``SCALE_ROWS`` through the port's
     ``full`` with every leg on the card, held to the JAX package's hashes
-    and contig statistics."""
+    and contig statistics.  With ``v1`` the map stages' ``build_device_tables``
+    refuses, as it does for every genome from ~60 Mb up, so each map stage
+    takes the v1 join."""
+    from muchsalsa_tpu_torch.pipeline import mapper_torch
     from muchsalsa_tpu_torch.testing.scale import run_scale_row
 
     t0 = time.perf_counter()
-    record = run_scale_row(work / "scale", SCALE_MB, device=device, log=lambda line: None,
-                           config=with_device_config(**GATES_OPEN))
+    build_tables = mapper_torch.build_device_tables
+    if v1:
+        mapper_torch.build_device_tables = lambda *a, **k: None
+    try:
+        record = run_scale_row(work / ("scale_v1" if v1 else "scale"), SCALE_MB, device=device,
+                               log=lambda line: None, config=with_device_config(**GATES_OPEN))
+    finally:
+        mapper_torch.build_device_tables = build_tables
     assert_no_reference("the port's scale row")
-    emit("scale", card=card, phase_s=time.perf_counter() - t0,
+    emit("scale_v1" if v1 else "scale", card=card, phase_s=time.perf_counter() - t0,
          **{k: record[k] for k in (
              "genome_mb", "simulation_s", "full_s", "stages_s", "stats", "equal",
              "cuda_peak_bytes", "core_cuda_peak_bytes", "kmer", "dbg", "map", "chain",
@@ -859,6 +871,10 @@ def phase_scale(card: str, work: Path, device) -> None:
                              f"{record['equal']}, {record['sha256']}")
     if record["chain_dp_launches"] == 0:
         raise AssertionError("the scale row's core never launched chain_dp")
+    v2 = {name: st["v2"] for name, st in record["map"].items()}
+    if len(v2) != 3 or any(x == v1 for x in v2.values()):
+        raise AssertionError(f"the scale row's map stages did not all take the "
+                             f"{'v1 join' if v1 else 'v2 tables'}: {v2}")
     on_card = str(torch.device("cuda", torch.cuda.current_device()))
     if record["kmer"].get("device") != on_card or record["dbg"].get("device") != on_card:
         raise AssertionError(f"the scale row's legs did not run on {on_card}: "
@@ -1266,8 +1282,10 @@ def main() -> int:
                 (*map_data, host_lines, map_stats, map_walls))
     del map_data
 
-    # --- 12. the 1 Mb scale row, every leg on the card
+    # --- 12. the 1 Mb scale row, every leg on the card, then again with
+    # every map stage on the v1 join
     phase_scale(card, work, "cuda")
+    phase_scale(card, work, "cuda", v1=True)
 
     assert_no_reference("chip_smoke")
     # no single PyTorch call computes any of the five functions: no yardstick;

@@ -54,8 +54,10 @@ __all__ = [
     "map_all_with_device", "map_batch", "refine_mappings", "write_paf"]
 
 # the last map_all_with_device call's counters (device, v2, total_reads,
-# overflow_reads, tier2_reads, dense_repulls, ...), and the sums of the
-# counting keys over every call since the caller last cleared it
+# overflow_reads, tier2_reads, dense_repulls, host_map_s: the wall of the
+# host mapper's call on the reads sent there; on the v1 path index_entries
+# and v1_setup_s, the wall of its tables' build and copy), and the sums of
+# the counting keys over every call since the caller last cleared it
 DEVICE_MAP_STATS: dict = {}
 DEVICE_MAP_STATS_CUM: dict = {}
 _CUM_KEYS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
@@ -143,7 +145,8 @@ def map_all_with_device(
     DEVICE_MAP_STATS.update(
         device=str(dev), n_devices=1 if attached is None else attached.size,
         meshed=mesh is not None, batch_reads=batch_reads, v2=built is not None,
-        total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0)
+        total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0,
+        host_map_s=0.0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
         _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits)
@@ -162,6 +165,7 @@ def _map_on_host(index, items, cfg, results) -> None:
     ``map_read`` a read."""
     if not items:
         return
+    t0 = time.perf_counter()
     store = SequenceStore()
     for rid, seq in items:
         store.add(str(rid), seq)
@@ -169,9 +173,10 @@ def _map_on_host(index, items, cfg, results) -> None:
     if per is None:
         for rid, seq in items:
             results[rid] = map_read(index, seq, cfg)
-        return
-    for (rid, _seq), (_sid, maps) in zip(items, per):
-        results[rid] = maps
+    else:
+        for (rid, _seq), (_sid, maps) in zip(items, per):
+            results[rid] = maps
+    DEVICE_MAP_STATS["host_map_s"] = time.perf_counter() - t0
 
 
 def _length_buckets(items) -> list[tuple[int, list[tuple[int, bytes]]]]:
@@ -238,12 +243,14 @@ def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, 
     E = int(index.offsets[-1])
     if E >= 2**31:
         raise ValueError(f"the v1 join addresses entries with int32 offsets: {E} entries")
+    t0 = time.perf_counter()
     bitmap, rank, rounds = build_join_tables(index.hashes, device=dev)
     idx_dev = (u32_tensor(index.hashes, dev),
                torch.from_numpy(index.offsets.astype(np.int32)).to(dev),
                torch.from_numpy(index.entry_unitig).to(dev),
                torch.from_numpy(index.entry_pos).to(dev),
                torch.from_numpy(index.entry_strand).to(dev))
+    DEVICE_MAP_STATS.update(index_entries=E, v1_setup_s=time.perf_counter() - t0)
     pin = dev.type == "cuda"
     to_host: list[tuple[int, bytes]] = []
 

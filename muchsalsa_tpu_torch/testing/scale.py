@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import resource
 import time
 from pathlib import Path
 
@@ -31,6 +32,10 @@ from muchsalsa_tpu_torch.testing.simulate import add_noise, illumina_pairs, rand
 
 INPUTS = ("nanopore.fa", "illu1.fa", "illu2.fa")
 ASSEMBLY = "03.assembly.unpolished.fa"
+# what a run's record keeps of each map stage's DEVICE_MAP_STATS (the last
+# two only on the v1 path)
+MAP_KEYS = ("v2", "total_reads", "overflow_reads", "tier2_reads", "host_map_s",
+            "index_entries", "v1_setup_s")
 
 # what made the rows with hashes: the JAX script with every leg on the
 # host, so its output does not depend on an accelerator
@@ -68,13 +73,11 @@ SCALE_ROWS: dict[float, dict] = {
         "f0415e7e93949375c5106bb603884823920d12ebb2c1bf6ccd5bc8e69c10bbe9",
         "6af910198b0c8e55c42aae315e27b945bede725337aab72a4da11e223fa7fe21",
         "e0c9ce9de428ce2a0fcf644ae96df2b8671e9e3313fd50d595216a7d31729f31")),
-    # the 140 Mb row: the JAX package's statistics alone (BASELINE.md:310),
-    # rounded as its stats line prints them; no hash of it was made
-    140.0: {
-        "coverage": 12.0, "illu_cov": 30.0,
-        "stats_line": "contigs=79 total=140.65Mb N50=3.10Mb longest=8.48Mb",
-        "made_by": "BASELINE.md:310 (the JAX package's scale_run.py 140, statistics only)",
-    },
+    140.0: _row("140", (79, 140_649_877, 3_097_212, 8_479_572), (
+        "9c3b7110c375d7f9bf43b104fea1da5eabd9af4d8a3d47e1e896d1b24f18aa01",
+        "8ca2a7123e7c739b2820ff2e96cd23eac8df1345e8aca955eebc069c10ad1bed",
+        "98c5b258d2a94f3fa40033058d446d47ddd931d51334c1507ca38d96daa6757e",
+        "a951e9d7fb222903eef009b16fe4fefb56f438d8bef29825913af79d04196258")),
 }
 
 
@@ -206,8 +209,8 @@ def run_scale_row(out: str | Path, genome_mb: float, coverage: float = 12.0,
     Returns the run's record: stage walls, contig statistics, the four
     sha256 values and, where ``SCALE_ROWS`` has the row, whether each
     equals it (``equal``), peak CUDA memory, the device legs' counters,
-    each map stage's overflow and tier-2 reads, the core's chaining
-    counters and ``chain_dp`` launches."""
+    each map stage's ``MAP_KEYS``, the core's chaining counters,
+    ``chain_dp`` launches and the process's peak resident memory."""
     from muchsalsa_tpu_torch.config import Config
     from muchsalsa_tpu_torch.device import resolve_device
     from muchsalsa_tpu_torch.ops import chaining_torch
@@ -261,8 +264,7 @@ def run_scale_row(out: str | Path, genome_mb: float, coverage: float = 12.0,
     equal = {}
     if row is not None:
         equal = {name: sha[name] == want for name, want in row.get("sha256", {}).items()}
-        equal["stats"] = (stats == row["stats"] if "stats" in row
-                          else stats_line(stats) == row["stats_line"])
+        equal["stats"] = stats == row["stats"]
     return {
         "genome_mb": genome_mb, "coverage": coverage, "illu_cov": illu_cov,
         "device": str(dev), "placement": legs,
@@ -273,9 +275,11 @@ def run_scale_row(out: str | Path, genome_mb: float, coverage: float = 12.0,
         "cuda_peak_bytes": peak["bytes"],
         "core_cuda_peak_bytes": core["memory"].get("device_peak_bytes_allocated"),
         "kmer": dict(KMER_DEVICE_STATS), "dbg": dict(DBG_DEVICE_STATS),
-        "scrub": dict(SCRUB_DEVICE_STATS), "map": {name: {k: st[k] for k in ("total_reads", "overflow_reads", "tier2_reads", "v2")}
-                for name, st in MAP_STAGE_STATS.items()},
+        "scrub": dict(SCRUB_DEVICE_STATS),
+        "map": {name: {k: st.get(k) for k in MAP_KEYS} for name, st in MAP_STAGE_STATS.items()},
         "map_cum": dict(DEVICE_MAP_STATS_CUM),
         "chain": {k: v for k, v in core["counters"].items() if k.startswith("chain")},
         "chain_dp_launches": launches,
+        # ru_maxrss is in KiB on Linux
+        "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10,
     }

@@ -2,8 +2,9 @@
 
 Raw Illumina pairs and long reads are simulated (numpy, from a seed) by
 ``tests/test_full_pipeline.py::make_inputs``.  The port runs on CPU tensors
-with device mapping on, and in one case with the k-mer, DBG and scrub
-device legs on too; the JAX package runs its all-host pipeline.
+with device mapping on, in one case with the k-mer, DBG and scrub device
+legs on too and in one with every map stage on the v1 join; the JAX
+package runs its all-host pipeline.
 Tolerance: byte-equal assembly, PAFs and intermediate FASTA files.
 """
 
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from muchsalsa_tpu.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
+from muchsalsa_tpu.ops import mapping_jax
 from muchsalsa_tpu.pipeline import cli as jax_cli
 from muchsalsa_tpu.pipeline.full import run_full_pipeline as jax_full
 from muchsalsa_tpu_torch.config import DEFAULT_CONFIG
@@ -61,16 +63,22 @@ def jax_refined_run(inputs, tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("refine,legs", [pytest.param(False, False, id="False"),
-                                          pytest.param(True, False, id="True"),
-                                          pytest.param(False, True, id="legs")])
-def test_full_matches_jax(inputs, request, tmp_path, refine, legs):
+@pytest.mark.parametrize("refine,legs,v1", [pytest.param(False, False, False, id="False"),
+                                             pytest.param(True, False, False, id="True"),
+                                             pytest.param(False, True, False, id="legs"),
+                                             pytest.param(False, False, True, id="v1")])
+def test_full_matches_jax(inputs, request, tmp_path, monkeypatch, refine, legs, v1):
     """With ``mapper.refine`` the three map stages also refine (the JAX
     package's exact Myers on the CPU against the port's plain version);
     with ``legs`` the k-mer counting, the DBG extension table and the
-    scrub's all-vs-all run on CPU tensors too."""
+    scrub's all-vs-all run on CPU tensors too; with ``v1`` both packages'
+    ``build_device_tables`` refuse, as for every genome from ~60 Mb up, so
+    each map stage takes the v1 join."""
     _genome, illu1, illu2, nano = inputs
     jax_run = request.getfixturevalue("jax_refined_run" if refine else "jax_run")
+    if v1:
+        monkeypatch.setattr(mapping_jax, "build_device_tables", lambda *a, **k: None)
+        monkeypatch.setattr(mapper_torch, "build_device_tables", lambda *a, **k: None)
     out = tmp_path / "port"
     final = run_full_pipeline(illu1, illu2, nano, out, REFINE if refine else DEFAULT_CONFIG,
                               device="cpu", device_map=True, device_kmer=legs,
@@ -83,7 +91,9 @@ def test_full_matches_jax(inputs, request, tmp_path, refine, legs):
     report = (out / "report.txt").read_text()
     for name in PAFS:
         assert f"device map {name}: " in report
-    assert "v2=True" in report and "abundance threshold" in report
+        line = report.split(f"device map {name}: ")[1].splitlines()[0]
+        assert f"v2={not v1}" in line, name
+    assert "abundance threshold" in report
     assert mapper_torch.DEVICE_MAP_STATS["device"] == "cpu"
     assert f"kmer={legs} scrub={legs} dbg={legs} (torch device cpu)" in report
     for leg in ("kmer", "dbg", "scrub"):

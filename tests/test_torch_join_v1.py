@@ -353,6 +353,10 @@ def test_map_all_with_device_v1_overflow_matches_jax(no_v2_tables, mph):
     assert counters() == want_stats
     assert stats["v2"] is False and stats["tier2_reads"] == stats["dense_repulls"] == 0
     assert 4 <= stats["overflow_reads"] < stats["total_reads"]
+    # the index's size and the walls of the join's set-up and of the host
+    # mapper's call on the flagged reads
+    assert stats["index_entries"] == int(index.offsets[-1]) > 0
+    assert stats["v1_setup_s"] >= 0 and stats["host_map_s"] > 0
     assert values(got) == [(rid, [dataclasses.astuple(m) for m in jax_mapper.map_read(
         index, seq, cfg)]) for rid, seq in reads.items()]
 

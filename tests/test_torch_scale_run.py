@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from muchsalsa_tpu_torch.testing.scale import (
-    ASSEMBLY, INPUTS, SCALE_ROWS, contig_stats, sha256, stats_line)
+    ASSEMBLY, INPUTS, SCALE_ROWS, contig_stats, scale_row, sha256, stats_line)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -97,6 +97,30 @@ def test_recorded_row_is_the_live_jax_run(runs):
     assert contig_stats(jax_dir / "full_out" / ASSEMBLY) == row["stats"]
 
 
+@pytest.mark.parametrize("mb", sorted(SCALE_ROWS))
+def test_every_row_holds_the_jax_scripts_hashes_and_stats(mb):
+    """Each row, 140 Mb included, is a run of the JAX script with
+    ``--host`` on the CPU: four sha256 values, the contig statistics, and
+    ``made_by`` naming that command at the row's size."""
+    row = SCALE_ROWS[mb]
+    assert set(row) == {"coverage", "illu_cov", "stats", "sha256", "made_by"}
+    assert set(row["sha256"]) == {*INPUTS, ASSEMBLY}
+    assert all(len(h) == 64 and int(h, 16) >= 0 for h in row["sha256"].values())
+    assert set(row["stats"]) == {"contigs", "total", "n50", "longest"}
+    assert row["stats"]["contigs"] >= 1
+    assert row["stats"]["longest"] >= row["stats"]["n50"]
+    assert row["stats"]["total"] >= row["stats"]["longest"]
+    assert f"scripts/scale_run.py {mb:g} 12 OUT 30 --host" in row["made_by"]
+    assert scale_row(mb, 12, 30) is row
+    assert scale_row(mb, 15, 30) is None and scale_row(mb, 12, 25) is None
+
+
+def test_140_mb_row_is_the_statistics_baseline_printed():
+    """The 140 Mb row's statistics print as BASELINE.md's flagship line."""
+    assert stats_line(SCALE_ROWS[140.0]["stats"]) == (
+        "contigs=79 total=140.65Mb N50=3.10Mb longest=8.48Mb")
+
+
 def test_twin_reports_its_row_equal(runs):
     record = json.loads(runs["torch"][1][-1])
     assert record["row"] is True
@@ -109,6 +133,7 @@ def test_twin_reports_its_row_equal(runs):
         "kmer_filter", "unitigs", "map_unitigs", "unitig_filter", "map_corrected", "scrub",
         "map_scrubbed", "core_assembly"}
     assert record["chain"]["chain_device_problems"] > 0
+    assert record["map"] == {} and record["peak_rss_bytes"] > 0
 
 
 @pytest.mark.parametrize("text,want", [
