@@ -21,11 +21,20 @@ a budget go to the host mapper.
 Refinement packs every mapped region into one batch
 (``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
 and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
+
+Each piece of that work runs in a span of ``utils/timing.py::SPANS``
+(``StageTimer.stage``): per call, per batch or per phase, never per read.
+The spans of batches go ``map.read_pack`` (the host packing of a batch and
+its copy to the device), then ``map.dispatch`` (the stage launches and the
+copy back queued), then ``map.collect`` around ``map.wait`` (the host
+blocked on the copy back) and ``map.repull`` (the dense re-pull); tier 2's
+batches lie inside ``map.tier2``.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import numpy as np
@@ -48,15 +57,16 @@ from muchsalsa_tpu_torch.ops.mapping_torch import (
 from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
 from muchsalsa_tpu_torch.parallel.sharded import sharded_map_reads_v2_packed
+from muchsalsa_tpu_torch.utils.timing import StageTimer
 
 __all__ = [
     "DEVICE_MAP_STATS", "DEVICE_MAP_STATS_CUM", "MinimizerIndex", "SequenceStore", "map_all",
     "map_all_with_device", "map_batch", "refine_mappings", "write_paf"]
 
 # the last map_all_with_device call's counters (device, v2, total_reads,
-# overflow_reads, tier2_reads, dense_repulls, host_map_s: the wall of the
-# host mapper's call on the reads sent there; on the v1 path index_entries
-# and v1_setup_s, the wall of its tables' build and copy), and the sums of
+# overflow_reads, tier2_reads, dense_repulls, host_map_s: the map.host span,
+# the host mapper's call on the reads sent there; on the v1 path
+# index_entries and v1_setup_s, the map.v1_tables span), and the sums of
 # the counting keys over every call since the caller last cleared it
 DEVICE_MAP_STATS: dict = {}
 DEVICE_MAP_STATS_CUM: dict = {}
@@ -99,6 +109,7 @@ def map_all_with_device(
     hit_budget: int | None = None,
     prebuilt=None,
     device: str | torch.device = "cuda",
+    timer: StageTimer | None = None,
 ) -> list[tuple[int, list[Mapping]]]:
     """Map every read on ``device``; the result equals per-read
     ``map_read``.
@@ -126,16 +137,19 @@ def map_all_with_device(
     multiple of their count D and each batch shards over them, the padded
     layout coming back; reads past a budget go to the host (no tier 2, no
     dense pull).  The stats say ``n_devices=D`` and ``meshed=True``.
-    Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``.
+    Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``, the
+    spans to ``timer`` (a new one when none is given).
     """
     dev = resolve_device(device)
+    timer = timer or StageTimer(verbose=False)
     items = list(reads.items())
     if not items:
         return []
     built = prebuilt
     if built is None and max_per_hit < 31:  # v2 count-saturation bound
-        built = build_device_tables(index.hashes, index.offsets, index.entry_unitig,
-                                    index.entry_pos, index.entry_strand, device=dev)
+        with timer.stage("map.v2_tables"):
+            built = build_device_tables(index.hashes, index.offsets, index.entry_unitig,
+                                        index.entry_pos, index.entry_strand, device=dev)
     attached = mesh_mod.local_mesh(dev)
     mesh = attached if built is not None else None  # the v1 join runs unsharded
     if mesh is not None:
@@ -149,34 +163,35 @@ def map_all_with_device(
         host_map_s=0.0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
-        _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits)
+        _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
+                timer)
     else:
         _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
-                max_per_hit, max_hits, hit_budget, mesh)
+                max_per_hit, max_hits, hit_budget, mesh, timer)
     for k2 in _CUM_KEYS:
         DEVICE_MAP_STATS_CUM[k2] = DEVICE_MAP_STATS_CUM.get(k2, 0) + DEVICE_MAP_STATS[k2]
     return [(rid, results[rid]) for rid, _ in items]
 
 
-def _map_on_host(index, items, cfg, results) -> None:
+def _map_on_host(index, items, cfg, results, timer) -> None:
     """Map ``items`` ((read id, sequence) pairs) with the host mapper into
     ``results``: one multithreaded ``map_batch`` call where the native
     library serves it (identical to per-read ``map_read``), else
     ``map_read`` a read."""
     if not items:
         return
-    t0 = time.perf_counter()
-    store = SequenceStore()
-    for rid, seq in items:
-        store.add(str(rid), seq)
-    per = map_batch(index, store, cfg)
-    if per is None:
+    with timer.stage("map.host") as span:
+        store = SequenceStore()
         for rid, seq in items:
-            results[rid] = map_read(index, seq, cfg)
-    else:
-        for (rid, _seq), (_sid, maps) in zip(items, per):
-            results[rid] = maps
-    DEVICE_MAP_STATS["host_map_s"] = time.perf_counter() - t0
+            store.add(str(rid), seq)
+        per = map_batch(index, store, cfg)
+        if per is None:
+            for rid, seq in items:
+                results[rid] = map_read(index, seq, cfg)
+        else:
+            for (rid, _seq), (_sid, maps) in zip(items, per):
+                results[rid] = maps
+    DEVICE_MAP_STATS["host_map_s"] = span.seconds
 
 
 def _length_buckets(items) -> list[tuple[int, list[tuple[int, bytes]]]]:
@@ -199,26 +214,29 @@ def _copy_to_host(t: torch.Tensor):
     return host, ready
 
 
-def _pipelined(batches, dispatch, collect) -> None:
+def _pipelined(batches, dispatch, collect, timer) -> None:
     """``dispatch`` each batch (a tuple of its arguments) and ``collect``
     what the one before it queued, so the host collects a batch while the
-    device runs the next."""
+    device runs the next; each collect is a ``map.collect`` span."""
     pending = None
     for batch in batches:
         nxt = dispatch(*batch)
         if pending is not None:
-            collect(pending)
+            with timer.stage("map.collect"):
+                collect(pending)
         pending = nxt
     if pending is not None:
-        collect(pending)
+        with timer.stage("map.collect"):
+            collect(pending)
 
 
-def _collect_packed(pending, max_hits, results, to_host) -> None:
+def _collect_packed(pending, max_hits, results, to_host, timer) -> None:
     """A pending packed pull (chunk, ``pack_hits`` tensor on the host, its
     ready event) into ``results`` once the copy has landed."""
     chunk, flat, ready = pending
-    if ready is not None:
-        ready.synchronize()
+    with timer.stage("map.wait"):
+        if ready is not None:
+            ready.synchronize()
     _collect_padded(chunk, unpack_hits(flat, max_hits), results, to_host)
 
 
@@ -234,7 +252,8 @@ def _collect_padded(chunk, out, results, to_host) -> None:
         results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
 
 
-def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits):
+def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
+            timer):
     """The v1 pass of ``map_all_with_device``, for an index that the v2
     tables refuse: the join tables and the index's five arrays go to
     ``dev`` once, each batch of a length bucket crosses as (R, L) uint8
@@ -243,43 +262,46 @@ def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, 
     E = int(index.offsets[-1])
     if E >= 2**31:
         raise ValueError(f"the v1 join addresses entries with int32 offsets: {E} entries")
-    t0 = time.perf_counter()
-    bitmap, rank, rounds = build_join_tables(index.hashes, device=dev)
-    idx_dev = (u32_tensor(index.hashes, dev),
-               torch.from_numpy(index.offsets.astype(np.int32)).to(dev),
-               torch.from_numpy(index.entry_unitig).to(dev),
-               torch.from_numpy(index.entry_pos).to(dev),
-               torch.from_numpy(index.entry_strand).to(dev))
-    DEVICE_MAP_STATS.update(index_entries=E, v1_setup_s=time.perf_counter() - t0)
+    with timer.stage("map.v1_tables") as span:
+        bitmap, rank, rounds = build_join_tables(index.hashes, device=dev)
+        idx_dev = (u32_tensor(index.hashes, dev),
+                   torch.from_numpy(index.offsets.astype(np.int32)).to(dev),
+                   torch.from_numpy(index.entry_unitig).to(dev),
+                   torch.from_numpy(index.entry_pos).to(dev),
+                   torch.from_numpy(index.entry_strand).to(dev))
+    DEVICE_MAP_STATS.update(index_entries=E, v1_setup_s=span.seconds)
     pin = dev.type == "cuda"
     to_host: list[tuple[int, bytes]] = []
 
     def dispatch(chunk, L):
-        codes = torch.full((batch_reads, L), 4, dtype=torch.uint8, pin_memory=pin)
-        lens = torch.zeros(batch_reads, dtype=torch.int32, pin_memory=pin)
-        codes_np, lens_np = codes.numpy(), lens.numpy()
-        for i, (_rid, seq) in enumerate(chunk):
-            c = encode_2bit(seq)
-            codes_np[i, : len(c)] = c
-            lens_np[i] = len(c)
-        _sel, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
-        out = map_reads_device(
-            codes.to(dev, non_blocking=True), lens.to(dev, non_blocking=True), *idx_dev,
-            bitmap, rank, k=cfg.k, w=cfg.w, bandwidth=cfg.bandwidth,
-            min_anchor_count=cfg.min_anchor_count, min_chain_score=cfg.min_chain_score,
-            max_pos=pos_L, max_per_hit=max_per_hit, max_hits=max_hits, join_rounds=rounds,
-            trim=trim_L)
-        return chunk, *_copy_to_host(pack_hits(out))
+        with timer.stage("map.read_pack"):
+            codes = torch.full((batch_reads, L), 4, dtype=torch.uint8, pin_memory=pin)
+            lens = torch.zeros(batch_reads, dtype=torch.int32, pin_memory=pin)
+            codes_np, lens_np = codes.numpy(), lens.numpy()
+            for i, (_rid, seq) in enumerate(chunk):
+                c = encode_2bit(seq)
+                codes_np[i, : len(c)] = c
+                lens_np[i] = len(c)
+            codes_d, lens_d = codes.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
+        with timer.stage("map.dispatch"):
+            _sel, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
+            out = map_reads_device(
+                codes_d, lens_d, *idx_dev, bitmap, rank, k=cfg.k, w=cfg.w,
+                bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
+                min_chain_score=cfg.min_chain_score, max_pos=pos_L, max_per_hit=max_per_hit,
+                max_hits=max_hits, join_rounds=rounds, trim=trim_L)
+            return chunk, *_copy_to_host(pack_hits(out))
 
     _pipelined(((members[s : s + batch_reads], L)
                 for L, members in _length_buckets(items)
                 for s in range(0, len(members), batch_reads)), dispatch,
-               lambda pending: _collect_packed(pending, max_hits, results, to_host))
-    _map_on_host(index, to_host, cfg, results)
+               lambda pending: _collect_packed(pending, max_hits, results, to_host, timer),
+               timer)
+    _map_on_host(index, to_host, cfg, results, timer)
 
 
 def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
-            max_hits, hit_budget, mesh):
+            max_hits, hit_budget, mesh, timer):
     """The v2 pass of ``map_all_with_device``, sharded over ``mesh`` when
     one is given: fills ``results``; the reads that leave the device are
     mapped on the host at the end, in one call."""
@@ -314,21 +336,22 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         if cache and key in dev_cache:
             dev_cache[key] = dev_cache.pop(key)  # LRU: move to the back
             return dev_cache[key][0]
-        seqs = [seq for _rid, seq in chunk]
-        built_np = (native.pack_reads_2bit(seqs, L, n_rows=batch_reads)
-                    if native.available() else None)
-        if built_np is not None:
-            packed, nmask, lens = built_np
-            tensors = (u32_tensor(packed, dev), u32_tensor(nmask, dev))
-        else:
-            codes = np.full((batch_reads, L), 4, dtype=np.uint8)
-            lens = np.zeros(batch_reads, dtype=np.int32)
-            for i, seq in enumerate(seqs):
-                c = encode_2bit(seq)
-                codes[i, : len(c)] = c
-                lens[i] = len(c)
-            tensors = pack_codes(codes, device=dev)
-        tensors = (*tensors, torch.from_numpy(lens).to(dev))
+        with timer.stage("map.read_pack"):
+            seqs = [seq for _rid, seq in chunk]
+            built_np = (native.pack_reads_2bit(seqs, L, n_rows=batch_reads)
+                        if native.available() else None)
+            if built_np is not None:
+                packed, nmask, lens = built_np
+                tensors = (u32_tensor(packed, dev), u32_tensor(nmask, dev))
+            else:
+                codes = np.full((batch_reads, L), 4, dtype=np.uint8)
+                lens = np.zeros(batch_reads, dtype=np.int32)
+                for i, seq in enumerate(seqs):
+                    c = encode_2bit(seq)
+                    codes[i, : len(c)] = c
+                    lens[i] = len(c)
+                tensors = pack_codes(codes, device=dev)
+            tensors = (*tensors, torch.from_numpy(lens).to(dev))
         if cache:
             cache_put(key, tensors)
         return tensors
@@ -340,16 +363,18 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         def dispatch_meshed(chunk, L, s):
             """One batch sharded over the mesh; returns the pending padded
             pull (chunk, hits on the host, its ready event)."""
-            sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
-            out, _stats = sharded_map_reads_v2_packed(
-                *packed_batch(chunk, L, s), tables, mesh, w=cfg.w, max_sel=sel_L,
-                max_pos=pos_L, max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L,
-                **tail_kw)
-            return chunk, *_copy_to_host(pack_hits(out))
+            batch = packed_batch(chunk, L, s)
+            with timer.stage("map.dispatch"):
+                sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
+                out, _stats = sharded_map_reads_v2_packed(
+                    *batch, tables, mesh, w=cfg.w, max_sel=sel_L, max_pos=pos_L,
+                    max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L, **tail_kw)
+                return chunk, *_copy_to_host(pack_hits(out))
 
         _pipelined(batches, dispatch_meshed,
-                   lambda pending: _collect_packed(pending, max_hits, results, to_host))
-        _map_on_host(index, to_host, cfg, results)
+                   lambda pending: _collect_packed(pending, max_hits, results, to_host, timer),
+                   timer)
+        _map_on_host(index, to_host, cfg, results, timer)
         return
 
     def dispatch(chunk, L, s, mph=max_per_hit, pos_cap=max_pos, cache_batch=True):
@@ -357,18 +382,19 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         pending pull (chunk, flat hits on the host, its ready event,
         anchors, trim, cap)."""
         packed_d, nmask_d, lens_d = packed_batch(chunk, L, s, cache=cache_batch)
-        sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, pos_cap, mph)
-        selected, h, strand = sketch_device_packed(packed_d, nmask_d, lens_d, cfg.k, cfg.w)
-        skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
-        rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
-        sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
-        anchors = expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=mph,
-                                           hash_takes=hash_takes)
-        flat = anchors_to_hits_device_dense(*anchors, trim=trim_L, budget=hit_budget,
-                                            **tail_kw)
-        # start the copy back now, so the host collects this batch while
-        # the device runs the next one
-        return chunk, *_copy_to_host(flat), anchors, trim_L, mph
+        with timer.stage("map.dispatch"):
+            sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, pos_cap, mph)
+            selected, h, strand = sketch_device_packed(packed_d, nmask_d, lens_d, cfg.k, cfg.w)
+            skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
+            rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
+            sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
+            anchors = expand_anchors_device_v2(*sel, tables.jrows, tables.erows,
+                                               max_per_hit=mph, hash_takes=hash_takes)
+            flat = anchors_to_hits_device_dense(*anchors, trim=trim_L, budget=hit_budget,
+                                                **tail_kw)
+            # start the copy back now, so the host collects this batch while
+            # the device runs the next one
+            return chunk, *_copy_to_host(flat), anchors, trim_L, mph
 
     # second-tier expansion cap (0 disables): reads whose violation a
     # wider cap or wider widths fix go through the device again
@@ -379,8 +405,9 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
 
     def collect(pending):
         chunk, flat, ready, anchors, trim, mph = pending
-        if ready is not None:
-            ready.synchronize()
+        with timer.stage("map.wait"):
+            if ready is not None:
+                ready.synchronize()
         flat_np = flat.numpy()
         R = batch_reads
         n_hits = flat_np[:R]
@@ -391,9 +418,10 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
             # over the dense budget: pull the padded tail instead (cap
             # violations fold into its overflow -> host)
             DEVICE_MAP_STATS["dense_repulls"] += 1
-            _collect_padded(chunk, unpack_hits(anchors_to_hits_device_packed(
-                *anchors, trim=trim, per_hit_cap=mph, **tail_kw), max_hits),
-                results, to_host)
+            with timer.stage("map.repull"):
+                out = unpack_hits(anchors_to_hits_device_packed(
+                    *anchors, trim=trim, per_hit_cap=mph, **tail_kw), max_hits)
+            _collect_padded(chunk, out, results, to_host)
             return
         dense_np = flat_np[3 * R :].reshape(hit_budget, 9)[:, 1:]  # drop flat_slot
         offs = np.zeros(len(counts) + 1, dtype=np.int64)
@@ -417,17 +445,18 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
             results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
 
     def run(batches, **kw):
-        _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect)
+        _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect, timer)
 
     run(batches)
     # tier 2 over the deferred reads: the wider cap and twice the widths;
     # its own violations go to the host (mph == tier2_mph there)
     if deferred:
-        run(((members[s : s + batch_reads], L, ("t2", L, j))
-             for L, members in sorted(deferred.items())
-             for j, s in enumerate(range(0, len(members), batch_reads))),
-            mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
-    _map_on_host(index, to_host, cfg, results)
+        with timer.stage("map.tier2"):
+            run(((members[s : s + batch_reads], L, ("t2", L, j))
+                 for L, members in sorted(deferred.items())
+                 for j, s in enumerate(range(0, len(members), batch_reads))),
+                mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
+    _map_on_host(index, to_host, cfg, results, timer)
 
 
 def refine_mappings(
@@ -439,6 +468,7 @@ def refine_mappings(
     engine: str = "myers",
     device: str | torch.device = "cuda",
     stats: dict | None = None,
+    timer: StageTimer | None = None,
 ) -> None:
     """Alignment-refined match counts (the reference's ``minimap2 -c
     --eqx`` stage): batch edit distance of every mapped region on ``device``
@@ -452,52 +482,60 @@ def refine_mappings(
     wavefront; ``None`` means true on ``cuda`` and false on ``cpu``, as the
     JAX package means true on a TPU.  Distances of -1 (outside the band)
     leave the mapping unrefined.  ``stats``, when given, receives the batch
-    shape, the packed tensors on the device and the walls of packing (pairs,
-    codes and the copy to the device), of the distance call (kernel and the
-    copy back) and of the whole refinement.
+    shape, the packed tensors on the device and the walls of packing
+    (``pack_s``: the spans ``refine.pairs``, ``refine.pad`` and
+    ``refine.copy``), of the distance call (``distance_s``: the span
+    ``refine.distance``, kernel and the copy back) and of the whole
+    refinement; the spans go to ``timer`` (a new one when none is given).
 
     ``mappings_per_read``: list of (read_id, [Mapping...]); mutated in place.
     """
     dev = resolve_device(device)
+    timer = timer or StageTimer(verbose=False)
     banded = engine != "myers"
     t0 = time.perf_counter()
     pairs = []
     slots = []
-    for rid, maps in mappings_per_read:
-        read_seq = reads.sequence(rid)
-        for m in maps:
-            q = unitigs.sequence(m.unitig)[m.q_start : m.q_end]
-            t = read_seq[m.t_start : m.t_end]
-            if not m.strand:
-                t = reverse_complement(t)
-            if banded and abs(len(q) - len(t)) >= band:
-                continue
-            pairs.append((q, t))
-            slots.append(m)
+    with timer.stage("refine.pairs") as pairs_span:
+        for rid, maps in mappings_per_read:
+            read_seq = reads.sequence(rid)
+            for m in maps:
+                q = unitigs.sequence(m.unitig)[m.q_start : m.q_end]
+                t = read_seq[m.t_start : m.t_end]
+                if not m.strand:
+                    t = reverse_complement(t)
+                if banded and abs(len(q) - len(t)) >= band:
+                    continue
+                pairs.append((q, t))
+                slots.append(m)
     if not pairs:
         return
 
-    args = tuple(x.to(dev) for x in pack_problems(pairs))
-    t1 = time.perf_counter()
-    if not banded:
-        dists = myers_edit_distance(*args)
-    else:
-        if use_pallas is None:
-            use_pallas = dev.type == "cuda"
-        if use_pallas:
-            dists = myers_banded(*args, window_words=max(band // 32, 2))
+    with timer.stage("refine.pad") as pad_span:
+        packed = pack_problems(pairs)
+    with timer.stage("refine.copy") as copy_span:
+        args = tuple(x.to(dev) for x in packed)
+    with timer.stage("refine.distance") as distance_span:
+        if not banded:
+            dists = myers_edit_distance(*args)
         else:
-            dists = banded_edit_distance(*args, band=band)
-    dists = dists.cpu().numpy()
-    t2 = time.perf_counter()
+            if use_pallas is None:
+                use_pallas = dev.type == "cuda"
+            if use_pallas:
+                dists = myers_banded(*args, window_words=max(band // 32, 2))
+            else:
+                dists = banded_edit_distance(*args, band=band)
+        dists = dists.cpu().numpy()
 
-    for m, (q, t), d in zip(slots, pairs, dists):
-        if d >= 0:
-            m.matches = max(len(q), len(t)) - int(d)
+    with timer.stage("refine.writeback"):
+        for m, (q, t), d in zip(slots, pairs, dists):
+            if d >= 0:
+                m.matches = max(len(q), len(t)) - int(d)
     if stats is not None:
         stats.update(problems=len(pairs), M=args[0].shape[1], N=args[2].shape[1],
-                     packed=args, pack_s=t1 - t0, distance_s=t2 - t1,
-                     refine_s=time.perf_counter() - t0)
+                     packed=args,
+                     pack_s=pairs_span.seconds + pad_span.seconds + copy_span.seconds,
+                     distance_s=distance_span.seconds, refine_s=time.perf_counter() - t0)
 
 
 def map_all(
@@ -521,16 +559,20 @@ def map_all(
     ``torch_device``.  The default ``cuda`` raises when there is no card;
     ``torch_device`` is not touched when neither runs.  ``processes`` > 1
     fans host mapping out over a fork-shared worker pool.  ``stats``, when
-    given, receives the mapping wall and ``refine_mappings``' statistics.
+    given, receives the mapping wall, ``refine_mappings``' statistics and
+    the call's span totals (``<span>_s`` seconds, ``<span>_n`` count;
+    ``StageTimer.totals``).  Under ``MS_TPU_TRACE`` the totals are also one
+    line on standard error.
     """
     uname = unitig_names or (lambda uid: f"u{uid}")
     rname = read_names or (lambda rid: f"r{rid}")
 
     if processes is None:
         processes = 1
+    timer = StageTimer(verbose=False)
     t0 = time.perf_counter()
     if device:
-        per_read = map_all_with_device(index, reads, cfg, device=torch_device)
+        per_read = map_all_with_device(index, reads, cfg, device=torch_device, timer=timer)
     else:
         per_read = map_batch(index, reads, cfg, threads=0 if processes <= 1 else processes)
     if per_read is None and processes > 1:
@@ -548,17 +590,25 @@ def map_all(
         stats["map_s"] = time.perf_counter() - t0
     if cfg.refine and unitigs is not None:
         refine_mappings(per_read, reads, unitigs, band=cfg.refine_band,
-                        device=torch_device, stats=stats)
+                        device=torch_device, stats=stats, timer=timer)
 
     lines: list[str] = []
-    for rid, maps in per_read:
-        tlen = reads.length(rid)
-        for m in maps:
-            qlen = index.unitig_lengths[m.unitig]
-            block = max(m.q_end - m.q_start, m.t_end - m.t_start)
-            lines.append(
-                f"{uname(m.unitig)}\t{qlen}\t{m.q_start}\t{m.q_end}\t"
-                f"{'+' if m.strand else '-'}\t{rname(rid)}\t{tlen}\t"
-                f"{m.t_start}\t{m.t_end}\t{m.matches}\t{block}\t60"
-            )
+    with timer.stage("map.paf"):
+        for rid, maps in per_read:
+            tlen = reads.length(rid)
+            for m in maps:
+                qlen = index.unitig_lengths[m.unitig]
+                block = max(m.q_end - m.q_start, m.t_end - m.t_start)
+                lines.append(
+                    f"{uname(m.unitig)}\t{qlen}\t{m.q_start}\t{m.q_end}\t"
+                    f"{'+' if m.strand else '-'}\t{rname(rid)}\t{tlen}\t"
+                    f"{m.t_start}\t{m.t_end}\t{m.matches}\t{block}\t60"
+                )
+    totals = timer.totals()
+    if stats is not None:
+        stats.update(totals)
+    if os.environ.get("MS_TPU_TRACE"):
+        print("[ms-tpu] map_all: " + ", ".join(
+            f"{name} {totals[name + '_s']:.3f}s/{totals[name + '_n']}" for name in timer.stages),
+            file=sys.stderr)
     return lines
