@@ -54,7 +54,13 @@ exits non-zero without its last line:
              wavefront engine with the banded Myers kernel and with the
              wavefront kernel; a sample of the exact distances against the
              host's big-int Myers; then each kernel against its plain version
-             on the very arrays the map_all path packed, with its bound;
+             on the very arrays the map_all path packed, with its bound; the
+             gather that builds refinement's batch from coordinates
+             (csrc/refine_gather.cu) against its plain version and against
+             pack_problems of the pairs sliced on the host, on these
+             mappings (its one launch in map_all counted) and on a synthetic
+             batch of a refined E. coli map stage's size (~57,000 problems
+             of 0.5-10 kb), each timed beside its byte bound;
 8. device_map — the same unitigs and reads through the port's
              map_all(device=True) on the card, identical to its host map_all
              with refinement off and on (the exact Myers kernel launched), a
@@ -147,7 +153,8 @@ import numpy as np
 import torch
 
 from muchsalsa_tpu_torch.utils.roofline import (
-    FP64_FLOPS, HBM_BYTES_PER_S, align_bound, card_int32_rate, dp_bound, median_ms, scan_bound)
+    FP64_FLOPS, HBM_BYTES_PER_S, align_bound, card_int32_rate, dp_bound, gather_bound, median_ms,
+    scan_bound)
 
 OUTPUTS = ("temp_1.target.fa", "temp_1.query.fa", "temp_1.align.paf")
 BUCKETS = (8, 16, 32, 64, 128)
@@ -294,11 +301,42 @@ def compare_align(name, kernel, plain, args, kw, timed: bool, int32_ops_per_s: f
     return row
 
 
+def compare_gather(card: str, name: str, args, M: int, N: int, pairs=None) -> dict:
+    """The gather kernel against its plain version on the card (and, given
+    ``pairs``, against ``pack_problems`` of them on the host), timed beside
+    its byte bound; raises unless bit-equal."""
+    from muchsalsa_tpu_torch.ops.align_torch import (
+        gather_problems, gather_problems_reference, pack_problems)
+
+    on_card = args.to("cuda")
+    before = gather_problems.launches
+    got = gather_problems(*on_card, M, N)
+    torch.cuda.synchronize()
+    if gather_problems.launches != before + 1:
+        raise AssertionError(f"gather_problems ({name}) did not launch its kernel")
+    wants = [("plain", gather_problems_reference(*on_card, M, N))]
+    if pairs is not None:
+        wants.append(("pack_problems", tuple(x.cuda() for x in pack_problems(pairs))))
+    for what, want in wants:
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"refine_gather ({name}) disagrees with {what}")
+    P = on_card.q_len.numel()
+    row = {"kernel": "refine_gather", "batch": name, "P": P, "M": M, "N": N,
+           "bytes": int(on_card.q_len.sum()) + int(on_card.t_len.sum()),
+           "checked": [w for w, _ in wants]}
+    row["bound_ms"], row["bound_by"] = gather_bound(on_card.q_len, on_card.t_len, M, N)
+    row["ms"] = median_ms(lambda: gather_problems(*on_card, M, N), reps=20)
+    row["plain_ms"] = median_ms(lambda: gather_problems_reference(*on_card, M, N), reps=3)
+    row["share"] = row["bound_ms"] / row["ms"]
+    emit("refine_gather", card=card, **row)
+    return row
+
+
 def reset_align_launches() -> None:
-    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
+    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, gather_problems
     from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 
-    for fn in (myers_edit_distance, myers_banded, banded_edit_distance):
+    for fn in (myers_edit_distance, myers_banded, banded_edit_distance, gather_problems):
         fn.launches = 0
 
 
@@ -335,11 +373,12 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_pe
     data: unitigs, noisy reads, config, index and PAF names, and a host copy
     of the packed regions)."""
     from muchsalsa_tpu_torch.config import Config
-    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance
+    from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, gather_problems
     from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
     from muchsalsa_tpu_torch.pipeline.mapper_torch import (
-        MinimizerIndex, SequenceStore, map_all, map_batch, refine_mappings)
-    from muchsalsa_tpu_torch.testing.pairs import myers_bigint
+        MinimizerIndex, SequenceStore, map_all, map_batch, problem_coordinates, refine_mappings)
+    from muchsalsa_tpu_torch.testing.pairs import gather_scale_inputs, myers_bigint
+    from muchsalsa_tpu_torch.utils.seq import reverse_complement
     from muchsalsa_tpu_torch.testing.simulate import add_noise
 
     t0 = time.perf_counter()
@@ -366,10 +405,15 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_pe
     map_all_s = time.perf_counter() - t0
     refine_launches = {"myers_full": myers_edit_distance.launches,
                        "myers_banded": myers_banded.launches,
-                       "banded_wavefront": banded_edit_distance.launches}
+                       "banded_wavefront": banded_edit_distance.launches,
+                       "refine_gather": gather_problems.launches}
     assert_no_reference("the port's map_all")
     if refine_launches["myers_full"] == 0:
         raise AssertionError("map_all with cfg.refine never launched the exact Myers kernel")
+    if refine_launches["refine_gather"] != 1 or stats["card_packed"] != stats["problems"]:
+        raise AssertionError(f"refinement built {stats['card_packed']} of {stats['problems']} "
+                             f"problems on the card in {refine_launches['refine_gather']} "
+                             "gather launches, not 1")
     peak = torch.cuda.max_memory_allocated()
     unrefined = map_all(index, reads, dataclasses.replace(cfg, refine=False), device=False,
                         **names)
@@ -435,6 +479,24 @@ def phase_refine(card: str, sim, device, align_err: dict[str, int], int32_ops_pe
         align_err[name] = max(align_err[name], row["max_abs_err"])
         slice_rows[name] = row
         emit("refine_kernels", card=card, **row)
+
+    # the gather on these mappings' coordinates (the batch map_all built),
+    # held to the host's packing of the pairs sliced in Python, then on a
+    # synthetic batch of the size and widths of the benchmark's refined
+    # E. coli map stage
+    slots, coords = problem_coordinates(per_read, reads, unitigs)
+    pairs = []
+    for rid, maps in per_read:
+        for m in maps:
+            t = reads.sequence(rid)[m.t_start : m.t_end]
+            pairs.append((unitigs.sequence(m.unitig)[m.q_start : m.q_end],
+                          t if m.strand else reverse_complement(t)))
+    M, N = int(coords.q_len.max()), int(coords.t_len.max())
+    row = compare_gather(card, "phase7", coords, M, N, pairs)
+    if (M, N) != (packed[0].shape[1], packed[2].shape[1]) or row["P"] != stats["problems"]:
+        raise AssertionError("the gather's batch is not the one map_all refined")
+    slice_rows["refine_gather"] = row
+    compare_gather(card, "synthetic_ecoli_size", *gather_scale_inputs(20_261_018))
     return (refine_launches, slice_rows, (unitigs, reads, cfg, index, names),
             [x.cpu() for x in packed])
 
@@ -1288,7 +1350,7 @@ def main() -> int:
     phase_scale(card, work, "cuda", v1=True)
 
     assert_no_reference("chip_smoke")
-    # no single PyTorch call computes any of the five functions: no yardstick;
+    # no single PyTorch call computes any of the six functions: no yardstick;
     # the chaining rows time the bucket that carried the most problems
     summary = []
     for name, launches, replaces in (
@@ -1322,6 +1384,19 @@ def main() -> int:
             "bound_by": slice_rows[name]["bound_by"],
             "library_ms": None,
         })
+    gather = slice_rows["refine_gather"]
+    summary.append({
+        "name": "refine_gather", "route": "cuda",
+        "source": "muchsalsa_tpu_torch/csrc/refine_gather.cu",
+        "replaces": None,  # the host's pack_problems; no TPU kernel
+        "launches": refine_launches["refine_gather"],
+        "max_abs_err": 0,
+        "ms": gather["ms"],
+        "plain_ms": gather["plain_ms"],
+        "bound_ms": gather["bound_ms"],
+        "bound_by": gather["bound_by"],
+        "library_ms": None,
+    })
     emit("done", card=card, seconds=time.perf_counter() - _T0)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,8 +112,9 @@ def load() -> ctypes.CDLL:
             lib.ms_myers_full.argtypes = [vp] * 7 + [ctypes.POINTER(ci)] + [ci] * 6 + [vp]
             lib.ms_myers_banded.argtypes = [vp] * 6 + [ci] * 9 + [vp]
             lib.ms_banded_wavefront.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+            lib.ms_refine_gather.argtypes = [vp] * 12 + [ci] * 3 + [vp]
             for fn in (lib.ms_chain_scan, lib.ms_chain_dp, lib.ms_myers_full, lib.ms_myers_banded,
-                       lib.ms_banded_wavefront):
+                       lib.ms_banded_wavefront, lib.ms_refine_gather):
                 fn.restype = ci
             lib.ms_cuda_error_string.argtypes = [ci]
             lib.ms_cuda_error_string.restype = ctypes.c_char_p

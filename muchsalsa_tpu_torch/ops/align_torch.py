@@ -8,6 +8,12 @@ CUDA kernel is ``csrc/banded_wavefront.cu``;
 function.  ``banded_edit_distance`` takes the plain version only for tensors
 on the CPU; for a CUDA tensor it launches the kernel or raises.
 
+``gather_problems`` builds the same packed batch as ``pack_problems`` from
+coordinates into two blobs of raw bytes instead of sliced pairs: on CUDA
+tensors with the kernel ``csrc/refine_gather.cu`` (which replaces no TPU
+kernel: the JAX package packs on the host), on CPU tensors with
+``gather_problems_reference``.
+
 Contract (the XLA function's, align.py:55-116): with D the (m+1, n+1)
 Levenshtein matrix, rows i = 1..rows (``rows = max_m or M``) sweep a band of
 ``band`` diagonals k = j - i in [klo, klo + band), klo = min(0, n - m) -
@@ -22,15 +28,24 @@ in the target here, unlike in Myers' PEq.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from muchsalsa_tpu_torch.utils.seq import encode_2bit
+from muchsalsa_tpu_torch.utils.seq import encode_2bit, reverse_complement
 
 INF = 1 << 20
 Q_PAD = 5   # query padding code: matches nothing
 T_PAD = 4   # target padding code
+
+# the gather's two code tables, a byte's code and, for a minus-strand
+# target, the code of its complement: reverse_complement swaps upper-case
+# ACGT alone, so a lower-case base keeps its own code there
+_BYTES = np.arange(256, dtype=np.uint8)
+FORWARD_CODES = encode_2bit(_BYTES)
+MINUS_CODES = encode_2bit(np.frombuffer(reverse_complement(_BYTES.tobytes())[::-1], np.uint8))
+_GATHER_TABLES: dict[torch.device, torch.Tensor] = {}
 
 
 def pack_problems(pairs: list[tuple[bytes, bytes]]):
@@ -61,6 +76,159 @@ def pack_problems(pairs: list[tuple[bytes, bytes]]):
         pad([t for _, t in pairs], t_lens, N, T_PAD),
         torch.from_numpy(t_lens),
     )
+
+
+class GatherArgs(NamedTuple):
+    """``gather_problems``' inputs but its widths, as numpy arrays or
+    tensors: two blobs of raw bytes (uint8), and for each problem where its
+    sequence begins in its blob (``*_off``, int64), its range's start
+    (``*_start``, int64) and length (``*_len``, int32), and whether the
+    target is read on the minus strand (``t_minus``, bool)."""
+
+    q_blob: object
+    q_off: object
+    q_start: object
+    q_len: object
+    t_blob: object
+    t_off: object
+    t_start: object
+    t_len: object
+    t_minus: object
+
+    def to(self, device) -> "GatherArgs":
+        """Every field as a tensor on ``device``."""
+        return GatherArgs(*(torch.as_tensor(x).to(device) for x in self))
+
+
+def slice_bounds(start: np.ndarray, end: np.ndarray, length: np.ndarray):
+    """(start, length) of ``seq[start:end]`` for sequences of ``length``
+    bytes, as Python slicing gives them: negative indices count from the
+    end, both are clamped into [0, length], and the length is never below
+    0.  int64 arrays in, int64 and int32 out."""
+    start, end, length = (np.asarray(x, dtype=np.int64) for x in (start, end, length))
+
+    def clamp(i):
+        return np.where(i < 0, np.maximum(i + length, 0), np.minimum(i, length))
+
+    lo, hi = clamp(start), clamp(end)
+    return lo, np.maximum(hi - lo, 0).astype(np.int32)
+
+
+def _check_gather(q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len, t_minus,
+                  M: int, N: int) -> int:
+    """Validate ``gather_problems``' inputs; returns P.  Every range must lie
+    inside its blob and every length inside its width."""
+    coords = (q_off, q_start, q_len, t_off, t_start, t_len, t_minus)
+    if q_blob.dim() != 1 or t_blob.dim() != 1 or any(x.dim() != 1 for x in coords):
+        raise ValueError("blobs and coordinates must be 1-D")
+    P = q_len.shape[0]
+    if any(x.shape[0] != P for x in coords):
+        raise ValueError(f"coordinates of unequal lengths: {[tuple(x.shape) for x in coords]}")
+    want = {"q_blob": (q_blob, torch.uint8), "t_blob": (t_blob, torch.uint8),
+            "q_off": (q_off, torch.int64), "q_start": (q_start, torch.int64),
+            "t_off": (t_off, torch.int64), "t_start": (t_start, torch.int64),
+            "q_len": (q_len, torch.int32), "t_len": (t_len, torch.int32),
+            "t_minus": (t_minus, torch.bool)}
+    for name, (x, dtype) in want.items():
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devs = {x.device for x, _ in want.values()}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on more than one device: {sorted(map(str, devs))}")
+    if M < 0 or N < 0:
+        raise ValueError(f"widths must be >= 0, got M={M}, N={N}")
+    if P:
+        ends = []
+        for blob, off, start, lens in ((q_blob, q_off, q_start, q_len),
+                                       (t_blob, t_off, t_start, t_len)):
+            first = off + start
+            used = lens > 0
+            ends += [torch.where(used, first, 0).min(), torch.where(used, first + lens, 0).max(),
+                     lens.min().long(), lens.max().long()]
+        q_lo, q_hi, ql_lo, ql_hi, t_lo, t_hi, tl_lo, tl_hi = torch.stack(ends).tolist()
+        if not (0 <= ql_lo and ql_hi <= M and 0 <= tl_lo and tl_hi <= N):
+            raise ValueError(f"lengths must lie in [0, M={M}] and [0, N={N}]")
+        if not (0 <= q_lo and q_hi <= q_blob.numel() and 0 <= t_lo and t_hi <= t_blob.numel()):
+            raise ValueError("a problem's range runs outside its blob")
+    return P
+
+
+def _gather_side(blob, off, start, lens, minus, width: int, pad: int) -> torch.Tensor:
+    """One side of ``gather_problems_reference``, in chunks of rows that
+    keep its index arrays near 2**24 elements."""
+    dev = blob.device
+    P = lens.shape[0]
+    out = torch.full((P, width), pad, dtype=torch.uint8, device=dev)
+    fwd = torch.from_numpy(FORWARD_CODES).to(dev)
+    rc = torch.from_numpy(MINUS_CODES).to(dev)
+    cols = torch.arange(width, dtype=torch.int64, device=dev)
+    step = max(1, (1 << 24) // max(width, 1))
+    for s in range(0, P, step):
+        n = lens[s : s + step].long()[:, None]
+        rev = minus[s : s + step, None].expand(-1, width)
+        inside = cols < n
+        pos = torch.where(rev, n - 1 - cols, cols)
+        idx = (off[s : s + step] + start[s : s + step])[:, None] + pos
+        raw = blob[idx[inside]].long()
+        out[s : s + step][inside] = torch.where(rev[inside], rc[raw], fwd[raw])
+    return out
+
+
+def gather_problems_reference(q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len,
+                              t_minus, M: int, N: int):
+    """Plain PyTorch ``gather_problems``: an index array a side, codes
+    looked up through the same two tables as the kernel."""
+    _check_gather(q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len, t_minus, M, N)
+    no_minus = torch.zeros_like(t_minus)
+    return (_gather_side(q_blob, q_off, q_start, q_len, no_minus, M, Q_PAD), q_len,
+            _gather_side(t_blob, t_off, t_start, t_len, t_minus, N, T_PAD), t_len)
+
+
+def gather_problems(q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len, t_minus,
+                    M: int, N: int):
+    """The packed batch of P problems from coordinates into two blobs of raw
+    bytes: ``(q_codes (P, M) uint8 padded with Q_PAD, q_len, t_codes (P, N)
+    uint8 padded with T_PAD, t_len)``, what ``pack_problems`` gives for the
+    pairs ``(q_blob[q_off + q_start :][: q_len], t)`` with ``t`` the bytes
+    ``t_blob[t_off + t_start :][: t_len]``, reverse-complemented where
+    ``t_minus``.
+
+    The arguments are the fields of ``GatherArgs``, in its order (call
+    ``gather_problems(*args, M, N)``), every range inside its blob, every
+    length inside its width.  On CUDA tensors this launches
+    ``csrc/refine_gather.cu`` on the current stream and counts the launch
+    in ``gather_problems.launches``; on CPU tensors it runs
+    ``gather_problems_reference``.
+    """
+    args = (q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len, t_minus)
+    if device_type(q_blob, "gather_problems") == "cpu":
+        return gather_problems_reference(*args, M, N)
+    P = _check_gather(*args, M, N)
+    dev = q_blob.device
+    q_codes = torch.empty((P, M), dtype=torch.uint8, device=dev)
+    t_codes = torch.empty((P, N), dtype=torch.uint8, device=dev)
+    if P == 0:
+        return q_codes, q_len, t_codes, t_len
+    if dev not in _GATHER_TABLES:
+        _GATHER_TABLES[dev] = torch.from_numpy(
+            np.concatenate([FORWARD_CODES, MINUS_CODES])).to(dev)
+
+    from muchsalsa_tpu_torch import kernels
+
+    lib = kernels.load()
+    ptrs = [ctypes.c_void_p(x.data_ptr())
+            for x in (*args, _GATHER_TABLES[dev], q_codes, t_codes)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ms_refine_gather(*ptrs, P, M, N, ctypes.c_void_p(stream))
+    kernels.check(lib, code, f"refine_gather launch (P={P}, M={M}, N={N})")
+    gather_problems.launches += 1
+    return q_codes, q_len, t_codes, t_len
+
+
+gather_problems.launches = 0
 
 
 def check_problems(q_codes, q_lens, t_codes, t_lens) -> tuple[int, int, int]:

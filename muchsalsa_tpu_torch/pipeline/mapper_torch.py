@@ -18,9 +18,11 @@ the requested type is visible, v2 batches shard over all of them
 (``parallel/sharded.py::sharded_map_reads_v2_packed``, the tables
 replicated) and come back in the padded layout, with no tier 2: reads past
 a budget go to the host mapper.
-Refinement packs every mapped region into one batch
-(``ops.align_torch.pack_problems``), runs one edit-distance kernel over it
-and writes ``max(len q, len t) - d`` back into each mapping's ``matches``.
+Refinement builds one padded batch of every mapped region on the device
+from the regions' coordinates into the raw bytes of the reads and unitigs
+(``ops.align_torch.gather_problems``), runs one edit-distance kernel over
+it and writes ``max(len q, len t) - d`` back into each mapping's
+``matches``.
 
 Each piece of that work runs in a span of ``utils/timing.py::SPANS``
 (``StageTimer.stage``): per call, per batch or per phase, never per read.
@@ -46,9 +48,10 @@ from muchsalsa_tpu_torch.io.fasta import SequenceStore
 from muchsalsa_tpu_torch.pipeline.mapper import (
     _POOL_STATE, Mapping, MinimizerIndex, _pool_map_one, device_bucket_budgets,
     device_bucket_len, map_batch, map_read, write_paf)
-from muchsalsa_tpu_torch.utils.seq import encode_2bit, reverse_complement
+from muchsalsa_tpu_torch.utils.seq import encode_2bit
 from muchsalsa_tpu_torch.device import resolve_device
-from muchsalsa_tpu_torch.ops.align_torch import banded_edit_distance, pack_problems
+from muchsalsa_tpu_torch.ops.align_torch import (
+    GatherArgs, banded_edit_distance, gather_problems, slice_bounds)
 from muchsalsa_tpu_torch.ops.mapping_torch import (
     HIT_FIELDS, anchors_to_hits_device_dense, anchors_to_hits_device_packed, build_device_tables,
     build_join_tables, compact_candidates_device_v2, expand_anchors_device_v2, map_reads_device,
@@ -459,6 +462,60 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     _map_on_host(index, to_host, cfg, results, timer)
 
 
+def problem_coordinates(
+    mappings_per_read: list[tuple[int, list[Mapping]]],
+    reads: SequenceStore,
+    unitigs: SequenceStore,
+    band: int | None = None,
+) -> tuple[list[Mapping], GatherArgs]:
+    """Each mapped region as coordinates into two blobs of raw bytes, the
+    arguments of ``ops.align_torch.gather_problems`` but its widths.
+
+    Returns ``(slots, GatherArgs)`` of numpy arrays: the unitigs named and the
+    reads with mappings joined into one uint8 blob each, a problem's
+    sequence at ``*_off`` (int64) in its blob, its range ``[*_start,
+    *_start + *_len)`` as Python slicing gives ``seq[start:end]`` (int64
+    start, int32 length) and ``t_minus`` where the read maps on the minus
+    strand.  With ``band``, mappings whose lengths differ by ``band`` or
+    more are left out, as the wavefront engine leaves them unrefined;
+    ``slots`` are the mappings kept, in the problems' order.
+    """
+    slots = []
+    rows = []
+    read_ids = []
+    for rid, maps in mappings_per_read:
+        if not maps:
+            continue
+        r = len(read_ids)
+        read_ids.append(rid)
+        for m in maps:
+            slots.append(m)
+            rows.append((m.unitig, m.q_start, m.q_end, r, m.t_start, m.t_end, m.strand))
+    coords = np.array(rows, dtype=np.int64).reshape(len(rows), 7).T
+    uid, q_start, q_end, r, t_start, t_end, plus = coords
+    uniq, u_of = np.unique(uid, return_inverse=True)
+    useqs = [unitigs.sequence(int(u)) for u in uniq]
+    rseqs = [reads.sequence(rid) for rid in read_ids]
+
+    def blob(seqs):
+        lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+        return (np.frombuffer(bytearray().join(seqs), dtype=np.uint8),
+                np.cumsum(lens) - lens, lens)
+
+    q_blob, u_off, u_len = blob(useqs)
+    t_blob, r_off, r_len = blob(rseqs)
+    q_start, q_len = slice_bounds(q_start, q_end, u_len[u_of])
+    t_start, t_len = slice_bounds(t_start, t_end, r_len[r])
+    args = (u_off[u_of], q_start, q_len, r_off[r], t_start, t_len, plus == 0)
+    if band is not None:
+        keep = np.abs(q_len.astype(np.int64) - t_len) < band
+        slots = [m for m, k in zip(slots, keep.tolist()) if k]
+        args = tuple(x[keep] for x in args)
+    q_off, q_start, q_len, t_off, t_start, t_len, t_minus = args
+    return slots, GatherArgs(q_blob, q_off, q_start, q_len, t_blob, t_off, t_start, t_len,
+                             t_minus)
+
+
 def refine_mappings(
     mappings_per_read: list[tuple[int, list[Mapping]]],
     reads: SequenceStore,
@@ -481,12 +538,21 @@ def refine_mappings(
     Myers kernel (window ``max(band // 32, 2)`` words) over the Levenshtein
     wavefront; ``None`` means true on ``cuda`` and false on ``cpu``, as the
     JAX package means true on a TPU.  Distances of -1 (outside the band)
-    leave the mapping unrefined.  ``stats``, when given, receives the batch
-    shape, the packed tensors on the device and the walls of packing
-    (``pack_s``: the spans ``refine.pairs``, ``refine.pad`` and
-    ``refine.copy``), of the distance call (``distance_s``: the span
-    ``refine.distance``, kernel and the copy back) and of the whole
-    refinement; the spans go to ``timer`` (a new one when none is given).
+    leave the mapping unrefined.
+
+    The padded batch is built on ``device`` from coordinates
+    (``problem_coordinates``, span ``refine.pairs``): the blobs and the
+    coordinates go to the device (``refine.copy``) and
+    ``ops.align_torch.gather_problems`` builds the batch (``refine.pad``;
+    the kernel on ``cuda``, the plain version on ``cpu``).  ``stats``, when
+    given, receives the batch shape, the packed tensors on the device, the
+    problems the kernel built (``card_packed``: 0 on the CPU) and the walls
+    of packing (``pack_s``: the three spans; ``refine.pad`` holds the
+    gather's launch, not its device time), of the distance call
+    (``distance_s``: the span ``refine.distance``, whose copy back is the
+    first wait on the gather, then the edit-distance kernel) and of the
+    whole refinement; the spans go to ``timer`` (a new one when none is
+    given).
 
     ``mappings_per_read``: list of (read_id, [Mapping...]); mutated in place.
     """
@@ -494,27 +560,19 @@ def refine_mappings(
     timer = timer or StageTimer(verbose=False)
     banded = engine != "myers"
     t0 = time.perf_counter()
-    pairs = []
-    slots = []
     with timer.stage("refine.pairs") as pairs_span:
-        for rid, maps in mappings_per_read:
-            read_seq = reads.sequence(rid)
-            for m in maps:
-                q = unitigs.sequence(m.unitig)[m.q_start : m.q_end]
-                t = read_seq[m.t_start : m.t_end]
-                if not m.strand:
-                    t = reverse_complement(t)
-                if banded and abs(len(q) - len(t)) >= band:
-                    continue
-                pairs.append((q, t))
-                slots.append(m)
-    if not pairs:
+        slots, coords = problem_coordinates(mappings_per_read, reads, unitigs,
+                                            band if banded else None)
+    if not slots:
         return
+    M, N = int(coords.q_len.max()), int(coords.t_len.max())
 
-    with timer.stage("refine.pad") as pad_span:
-        packed = pack_problems(pairs)
     with timer.stage("refine.copy") as copy_span:
-        args = tuple(x.to(dev) for x in packed)
+        on_dev = coords.to(dev)
+    with timer.stage("refine.pad") as pad_span:
+        launches = gather_problems.launches
+        args = gather_problems(*on_dev, M, N)
+        card_packed = len(slots) if gather_problems.launches > launches else 0
     with timer.stage("refine.distance") as distance_span:
         if not banded:
             dists = myers_edit_distance(*args)
@@ -528,12 +586,12 @@ def refine_mappings(
         dists = dists.cpu().numpy()
 
     with timer.stage("refine.writeback"):
-        for m, (q, t), d in zip(slots, pairs, dists):
+        spans = np.maximum(coords.q_len, coords.t_len)
+        for m, span, d in zip(slots, spans.tolist(), dists.tolist()):
             if d >= 0:
-                m.matches = max(len(q), len(t)) - int(d)
+                m.matches = span - d
     if stats is not None:
-        stats.update(problems=len(pairs), M=args[0].shape[1], N=args[2].shape[1],
-                     packed=args,
+        stats.update(problems=len(slots), M=M, N=N, packed=args, card_packed=card_packed,
                      pack_s=pairs_span.seconds + pad_span.seconds + copy_span.seconds,
                      distance_s=distance_span.seconds, refine_s=time.perf_counter() - t0)
 

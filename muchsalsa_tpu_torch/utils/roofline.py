@@ -105,6 +105,21 @@ def align_work(name: str, args, kw: dict) -> tuple[int, int]:
     return nbytes, ops
 
 
+def gather_bytes(q_len: torch.Tensor, t_len: torch.Tensor, M: int, N: int) -> int:
+    """Bytes ``gather_problems`` must move: each problem's range of the two
+    blobs (its lengths' bytes) and its coordinates (an offset and a start,
+    int64, and a length, int32, a side; the strand byte) read once, and the
+    P (M + N) codes written once."""
+    P = q_len.numel()
+    return int(q_len.sum()) + int(t_len.sum()) + P * (2 * (8 + 8 + 4) + 1) + P * (M + N)
+
+
+def gather_bound(q_len: torch.Tensor, t_len: torch.Tensor, M: int, N: int) -> tuple[float, str]:
+    """Bound of one ``gather_problems`` call: its bytes (``gather_bytes``);
+    a table lookup a code is far below any issue rate."""
+    return bound(gather_bytes(q_len, t_len, M, N), 0, 1.0)
+
+
 def align_bound(name: str, args, kw: dict, int32_ops_per_s: float) -> tuple[float, str]:
     """Bound of one edit-distance call on these inputs (``align_work``)."""
     return bound(*align_work(name, args, kw), int32_ops_per_s)

@@ -1,9 +1,12 @@
 """The port's problem packing and banded wavefront (plain version) against
-the JAX package.
+the JAX package, and the gather of packed problems from coordinates against
+the packing of the same pairs sliced in Python.
 
 Inputs are random pairs made with numpy from a seed (mutated at 0-30 % with
-``N``s, empty queries and targets, unrelated lengths).  Tolerance: exact
-equality of the packed arrays and of the int32 distances, -1s included.
+``N``s, empty queries and targets, unrelated lengths), and for the gather
+random sequences and ranges (``testing/pairs.py::gather_case``).
+Tolerance: exact equality of the packed arrays and of the int32 distances,
+-1s included.
 """
 
 import jax.numpy as jnp
@@ -16,8 +19,10 @@ from muchsalsa_tpu.ops.align import edit_distance_np
 from muchsalsa_tpu.ops.align import pack_problems as jax_pack_problems
 from muchsalsa_tpu.ops.align_pallas import banded_edit_distance_pallas
 from muchsalsa_tpu_torch.ops.align_torch import (
-    INF, banded_edit_distance, banded_edit_distance_reference, pack_problems)
-from muchsalsa_tpu_torch.testing.pairs import random_pairs, random_seq
+    INF, banded_edit_distance, banded_edit_distance_reference, gather_problems,
+    gather_problems_reference, pack_problems, slice_bounds)
+from muchsalsa_tpu_torch.testing.pairs import (
+    GATHER_CASES, gather_case, gather_inputs, random_pairs, random_seq, sliced_pairs)
 
 
 def packed(pairs):
@@ -101,3 +106,47 @@ def test_wrapper_rejects_bad_inputs_and_launches_nothing_on_cpu():
         banded_edit_distance(q, ql, t, tl + t.shape[1])
     with pytest.raises(ValueError):
         banded_edit_distance(q.to("meta"), ql.to("meta"), t.to("meta"), tl.to("meta"))
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_reference_matches_pack_problems(case):
+    queries, targets, problems = gather_case(case, GATHER_CASES.index(case))
+    args, M, N = gather_inputs(queries, targets, problems)
+    got = gather_problems_reference(*args.to("cpu"), M, N)
+    want = pack_problems(sliced_pairs(queries, targets, problems))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+def test_slice_bounds_is_python_slicing():
+    seq = bytes(range(10))
+    cuts = [(a, b) for a in range(-13, 14) for b in range(-13, 14)]
+    start, length = slice_bounds([a for a, _ in cuts], [b for _, b in cuts], [len(seq)] * len(cuts))
+    assert length.dtype == np.int32
+    for (a, b), s, n in zip(cuts, start.tolist(), length.tolist()):
+        assert seq[s : s + n] == seq[a:b]
+
+
+def test_gather_wrapper_on_cpu_is_the_reference_and_checks_its_inputs():
+    queries, targets, problems = gather_case("minus_strand", 5)
+    args, M, N = gather_inputs(queries, targets, problems)
+    args = args.to("cpu")
+    before = gather_problems.launches
+    for a, b in zip(gather_problems(*args, M, N), gather_problems_reference(*args, M, N)):
+        assert torch.equal(a, b)
+    assert gather_problems.launches == before
+    with pytest.raises(ValueError, match="lengths"):
+        gather_problems(*args, M - 1, N)
+    last = int(torch.where(args.q_len > 0, args.q_off + args.q_start + args.q_len, 0).max())
+    with pytest.raises(ValueError, match="outside its blob"):
+        gather_problems(*args._replace(q_blob=args.q_blob[: last - 1]), M, N)
+    with pytest.raises(ValueError, match="outside its blob"):
+        gather_problems(*args._replace(q_off=args.q_off - 1 - args.q_off.max()), M, N)
+    with pytest.raises(TypeError):
+        gather_problems(*args._replace(q_len=args.q_len.long()), M, N)
+    with pytest.raises(ValueError):
+        gather_problems(*args._replace(q_len=args.q_len[1:]), M, N)
+    with pytest.raises(ValueError):
+        gather_problems(*(x.to("meta") for x in args), M, N)

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from muchsalsa_tpu_torch.ops.align_torch import (
-    banded_edit_distance, banded_edit_distance_reference, pack_problems)
+    banded_edit_distance, banded_edit_distance_reference, gather_problems,
+    gather_problems_reference, pack_problems)
 from muchsalsa_tpu_torch.ops.chain_scan import (
     NEG, chain_dp, chain_dp_reference, chain_scan, chain_scan_reference)
 from muchsalsa_tpu_torch.ops.myers_torch import (
@@ -25,7 +26,9 @@ from muchsalsa_tpu_torch.ops.myers_torch import (
 from muchsalsa_tpu_torch.state import pack_batch
 from muchsalsa_tpu_torch.testing.chains import KINDS as CHAIN_KINDS
 from muchsalsa_tpu_torch.testing.chains import WIGGLE_ROOM, chain_batch, inverted_pair_batch
-from muchsalsa_tpu_torch.testing.pairs import band_edge_pairs, random_pairs, scramble_past_lengths
+from muchsalsa_tpu_torch.testing.pairs import (
+    GATHER_CASES, band_edge_pairs, gather_case, gather_inputs, gather_scale_inputs, random_pairs,
+    scramble_past_lengths, sliced_pairs)
 
 pytestmark = pytest.mark.cuda
 
@@ -331,6 +334,56 @@ def test_align_kernels_reject_unsupported_shapes(cuda):
         myers_edit_distance(args[0], args[1].cpu(), args[2], args[3])
 
 
+def check_gather(device, args, M, N):
+    """The gather kernel on ``device`` against its plain version there, one
+    launch counted where there are problems."""
+    on_card = args.to(device)
+    P = on_card.q_len.numel()
+    before = gather_problems.launches
+    got = gather_problems(*on_card, M, N)
+    torch.cuda.synchronize()
+    assert gather_problems.launches == before + (P > 0)
+    want = gather_problems_reference(*on_card, M, N)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_gather_kernel_matches_reference(cuda, case):
+    queries, targets, problems = gather_case(case, GATHER_CASES.index(case))
+    args, M, N = gather_inputs(queries, targets, problems)
+    got = check_gather(cuda, args, M, N)
+    for a, b in zip(got, pack_problems(sliced_pairs(queries, targets, problems))):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("max_len", (1, 7, 16, 17, 40, 1000))
+def test_gather_kernel_every_row_alignment(cuda, max_len):
+    """Widths below, at and past one 16-byte store, rows starting at every
+    alignment."""
+    queries, targets, problems = gather_case("lower_case", max_len, max_len=max_len, P=257)
+    check_gather(cuda, *gather_inputs(queries, targets, problems))
+
+
+def test_gather_kernel_at_a_refined_map_stage(cuda):
+    """~57,000 problems of 0.5-10 kb into 232 MB of reads: a synthetic
+    batch the size of a refined E. coli map stage's."""
+    check_gather(cuda, *gather_scale_inputs(20_261_018))
+
+
+def test_gather_kernel_rejects_bad_inputs(cuda):
+    args, M, N = gather_inputs(*gather_case("minus_strand", 3))
+    on_card = args.to(cuda)
+    with pytest.raises(ValueError):
+        gather_problems(*on_card, M - 1, N)
+    with pytest.raises(ValueError):
+        gather_problems(*on_card._replace(q_blob=on_card.q_blob.cpu()), M, N)
+    with pytest.raises(TypeError):
+        gather_problems(*on_card._replace(t_minus=on_card.t_minus.to(torch.uint8)), M, N)
+
+
 def test_port_refinement_on_card_matches_cpu(cuda):
     from muchsalsa_tpu_torch.config import MapperConfig
     from muchsalsa_tpu_torch.pipeline.mapper_torch import MinimizerIndex, SequenceStore, map_all
@@ -346,9 +399,13 @@ def test_port_refinement_on_card_matches_cpu(cuda):
         reads.add(name, add_noise(rng, seq, 0.08))
     cfg = dataclasses.replace(MapperConfig(), refine=True)
     index = MinimizerIndex.build(unitigs, cfg)
-    before = myers_edit_distance.launches
-    on_card = map_all(index, reads, cfg, unitigs=unitigs, device=False, torch_device=cuda)
-    assert myers_edit_distance.launches == before + 1
+    before = myers_edit_distance.launches, gather_problems.launches
+    stats = {}
+    on_card = map_all(index, reads, cfg, unitigs=unitigs, device=False, torch_device=cuda,
+                      stats=stats)
+    assert (myers_edit_distance.launches, gather_problems.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert stats["card_packed"] == stats["problems"] > 0
     assert on_card == map_all(index, reads, cfg, unitigs=unitigs, device=False,
                               torch_device="cpu")
 

@@ -115,6 +115,28 @@ def test_refine_mappings_banded_myers_matches_pallas(dataset, port_dataset, band
     assert got == matches(want)
 
 
+@pytest.mark.parametrize("engine", ("myers", "wavefront"))
+def test_refine_mappings_gathers_from_coordinates(dataset, port_dataset, monkeypatch, engine):
+    """Refinement builds its batch from the mappings' coordinates: it never
+    packs sliced pairs on the host, and gives the JAX package's matches."""
+    from muchsalsa_tpu_torch.ops import align_torch
+
+    want = refined(dataset, jax_mapper.refine_mappings, band=256, engine=engine,
+                   use_pallas=False)
+
+    def no_host_packing(pairs):
+        raise AssertionError("refine_mappings packed sliced pairs on the host")
+
+    monkeypatch.setattr(align_torch, "pack_problems", no_host_packing)
+    monkeypatch.setattr(mapper_torch, "pack_problems", no_host_packing, raising=False)
+    stats = {}
+    got = refined(port_dataset, mapper_torch.refine_mappings, band=256, engine=engine,
+                  use_pallas=False, device="cpu", stats=stats)
+    assert got == want
+    assert stats["card_packed"] == 0  # CPU tensors: the plain version built the batch
+    assert stats["packed"][0].shape == (stats["problems"], stats["M"])
+
+
 def test_map_all_with_refinement_matches_jax(dataset, port_dataset):
     unitigs, reads, cfg, index, _ = dataset
     cfg = dataclasses.replace(cfg, refine=True)
