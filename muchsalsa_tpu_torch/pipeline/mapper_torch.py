@@ -68,9 +68,13 @@ __all__ = [
 
 # the last map_all_with_device call's counters (device, v2, total_reads,
 # overflow_reads, tier2_reads, dense_repulls, host_map_s: the map.host span,
-# the host mapper's call on the reads sent there; on the v1 path
-# index_entries and v1_setup_s, the map.v1_tables span), and the sums of
-# the counting keys over every call since the caller last cleared it
+# the host mapper's call on the reads sent there; on the v2 path the tier
+# routing: tier2_width_reads and tier2_hot_reads, the reads the first pass
+# deferred with a width overflow and with an entry count past its cap (a
+# read may count in both), and tier2_host_reads, the reads tier 2 sent on
+# to the host, counted in overflow_reads too; on the v1 path index_entries
+# and v1_setup_s, the map.v1_tables span), and the sums of the counting
+# keys over every call since the caller last cleared it
 DEVICE_MAP_STATS: dict = {}
 DEVICE_MAP_STATS_CUM: dict = {}
 _CUM_KEYS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
@@ -163,7 +167,7 @@ def map_all_with_device(
         device=str(dev), n_devices=1 if attached is None else attached.size,
         meshed=mesh is not None, batch_reads=batch_reads, v2=built is not None,
         total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0,
-        host_map_s=0.0)
+        tier2_width_reads=0, tier2_hot_reads=0, tier2_host_reads=0, host_map_s=0.0)
     results: dict[int, list[Mapping]] = {}
     if built is None:
         _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
@@ -374,9 +378,11 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                     max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L, **tail_kw)
                 return chunk, *_copy_to_host(pack_hits(out))
 
-        _pipelined(batches, dispatch_meshed,
-                   lambda pending: _collect_packed(pending, max_hits, results, to_host, timer),
-                   timer)
+        with timer.stage("map.tier1"):
+            _pipelined(batches, dispatch_meshed,
+                       lambda pending: _collect_packed(pending, max_hits, results, to_host,
+                                                       timer),
+                       timer)
         _map_on_host(index, to_host, cfg, results, timer)
         return
 
@@ -441,6 +447,8 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                 if mph < tier2_mph and max_ecnt[i] <= tier2_mph and tier2_helps:
                     deferred.setdefault(Lb, []).append((rid, seq))
                     DEVICE_MAP_STATS["tier2_reads"] += 1
+                    DEVICE_MAP_STATS["tier2_width_reads"] += int(width_ovf[i])
+                    DEVICE_MAP_STATS["tier2_hot_reads"] += int(max_ecnt[i] > mph)
                 else:
                     DEVICE_MAP_STATS["overflow_reads"] += 1
                     to_host.append((rid, seq))
@@ -450,15 +458,18 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     def run(batches, **kw):
         _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect, timer)
 
-    run(batches)
+    with timer.stage("map.tier1"):
+        run(batches)
     # tier 2 over the deferred reads: the wider cap and twice the widths;
     # its own violations go to the host (mph == tier2_mph there)
     if deferred:
+        first_pass_host = len(to_host)
         with timer.stage("map.tier2"):
             run(((members[s : s + batch_reads], L, ("t2", L, j))
                  for L, members in sorted(deferred.items())
                  for j, s in enumerate(range(0, len(members), batch_reads))),
                 mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
+        DEVICE_MAP_STATS["tier2_host_reads"] = len(to_host) - first_pass_host
     _map_on_host(index, to_host, cfg, results, timer)
 
 

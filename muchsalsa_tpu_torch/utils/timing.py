@@ -28,7 +28,7 @@ import torch
 # readers of the benchmark and the tests take the names from here
 SPANS = (
     "map.v2_tables", "map.v1_tables", "map.read_pack", "map.dispatch", "map.wait",
-    "map.collect", "map.repull", "map.tier2", "map.host", "map.paf",
+    "map.collect", "map.repull", "map.tier1", "map.tier2", "map.host", "map.paf",
     "refine.pairs", "refine.pad", "refine.copy", "refine.distance", "refine.writeback",
 )
 

@@ -20,7 +20,7 @@ from muchsalsa_tpu_torch.utils.timing import SPANS, StageTimer
 BATCH = ("map.read_pack", "map.dispatch", "map.wait", "map.collect")
 REFINE = ("refine.pairs", "refine.pad", "refine.copy", "refine.distance", "refine.writeback")
 EXPECTED = {
-    "v2": {"map.v2_tables", *BATCH, "map.paf", *REFINE},
+    "v2": {"map.v2_tables", "map.tier1", *BATCH, "map.paf", *REFINE},
     "v1": {"map.v2_tables", "map.v1_tables", *BATCH, "map.paf", *REFINE},
 }
 
@@ -101,7 +101,7 @@ def test_span_sums_stay_inside_the_walls(inputs, path):
     stats: dict = {}
     run_map_all(inputs, stats)
     top = [n for n in EXPECTED[path] if n.startswith("map.") and n not in
-           ("map.paf", "map.wait")]
+           ("map.paf", "map.wait", "map.tier1")]   # map.tier1 holds the batch spans
     assert sum(stats[f"{n}_s"] for n in top) <= stats["map_s"]
     assert stats["map.wait_s"] <= stats["map.collect_s"]
     assert sum(stats[f"{n}_s"] for n in REFINE) <= stats["refine_s"]
@@ -123,9 +123,10 @@ def test_tier2_repull_and_host_spans_nest_as_documented(monkeypatch):
 
     timer = spans("16")
     assert mt.DEVICE_MAP_STATS["tier2_reads"] >= 1 and timer.calls["map.tier2"] == 1
+    assert timer.calls["map.tier1"] == 1 and timer.parents["map.tier1"] == {""}
     assert timer.parents["map.v2_tables"] == {""} and timer.parents["map.tier2"] == {""}
     for name in ("map.read_pack", "map.dispatch", "map.collect"):
-        assert timer.parents[name] == {"", "map.tier2"}, name
+        assert timer.parents[name] == {"map.tier1", "map.tier2"}, name
     assert timer.parents["map.wait"] == {"map.collect"}
 
     timer = spans("16", hit_budget=2)
