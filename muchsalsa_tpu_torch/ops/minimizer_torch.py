@@ -43,11 +43,10 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _one_hot_argmin(h: torch.Tensor) -> torch.Tensor:
-    """(R, Lk) bool: the first minimal position of each row."""
+    """(R, Lk) bool: the first minimal position of each row (a comparison,
+    not a scatter of a host scalar, so that a CUDA graph can capture it)."""
     amin = torch.argmin(h, dim=1)
-    out = torch.zeros(h.shape, dtype=torch.bool, device=h.device)
-    out[torch.arange(h.shape[0], device=h.device), amin] = True
-    return out
+    return torch.arange(h.shape[1], device=h.device)[None, :] == amin[:, None]
 
 
 def minimizer_sketch(codes: torch.Tensor, lens: torch.Tensor, k: int = 15, w: int = 5):

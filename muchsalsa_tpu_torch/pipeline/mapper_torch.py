@@ -18,6 +18,10 @@ the requested type is visible, v2 batches shard over all of them
 (``parallel/sharded.py::sharded_map_reads_v2_packed``, the tables
 replicated) and come back in the padded layout, with no tier 2: reads past
 a budget go to the host mapper.
+On one CUDA device each v2 batch's six stages replay a CUDA graph captured
+from them, one graph a batch shape (``_StageGraphs``), so the host launches
+one graph where it would launch a few hundred small ops; a shape's first
+batch launches them op by op.
 Refinement builds one padded batch of every mapped region on the device
 from the regions' coordinates into the raw bytes of the reads and unitigs
 (``ops.align_torch.gather_problems``), runs one edit-distance kernel over
@@ -77,7 +81,12 @@ __all__ = [
 # keys over every call since the caller last cleared it
 DEVICE_MAP_STATS: dict = {}
 DEVICE_MAP_STATS_CUM: dict = {}
-_CUM_KEYS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
+# the counting keys: the reads' routes, which the JAX package's mapper counts
+# too, then the v2 batches' launches: graph_batches replayed from a captured
+# CUDA graph, eager_batches launched op by op, graph_captures the graphs
+# captured (all three 0 on the v1 path)
+_COUNT_KEYS = ("total_reads", "overflow_reads", "tier2_reads", "dense_repulls")
+_CUM_KEYS = _COUNT_KEYS + ("graph_batches", "eager_batches", "graph_captures")
 # the per-store cache of packed read batches on a device; its own attribute,
 # so a store mapped by both packages never hands one package's arrays to the other
 _CACHE_ATTR = "_torch_dev_batch_cache"
@@ -95,6 +104,100 @@ def _batch_cache(reads: SequenceStore, dev: torch.device) -> dict:
     if entry is None or entry[0] != version:
         entry = caches[str(dev)] = (version, {})
     return entry[1]
+
+
+def _graph_key(tables, hash_takes, L, budgets, mph, batch_reads, hit_budget, cfg,
+               max_hits) -> tuple:
+    """Everything that fixes the shapes and constants of a v2 batch's six
+    stages: the key of the graph captured from them."""
+    return (L, tuple(budgets), mph, hash_takes, batch_reads, hit_budget,
+            tuple(tuple(t.shape) for t in tables),
+            cfg.k, cfg.w, cfg.bandwidth, cfg.min_anchor_count, cfg.min_chain_score, max_hits)
+
+
+class _StageGraphs:
+    """One call's v2 stages on one CUDA device as a CUDA graph of the
+    current ``_graph_key``, captured from them.
+
+    A key's first batch launches the stages op by op, which loads their
+    kernels; its second captures them and replays the graph, and later ones
+    copy their inputs into the graph's own and replay.  A batch of another
+    key drops the graph: one key's batches come one after another (the
+    buckets go in order of length, tier 2 after tier 1), so a key that
+    serves one batch captures nothing.  The graph reads the call's tables
+    and lives no longer than the call.  Its memory comes from the device's
+    graph pool (``_graph_memory``): what the stages hold counts as allocated
+    while they are captured, as it does while they run op by op, and the
+    next capture reuses the blocks the last graph leaves in the pool.  The
+    caller queues each replay's output copy right after the replay, before
+    a later one can write that memory.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool, self.stream = _graph_memory(device)
+        self.key = None
+        self.graph = None   # (inputs, graph, output) of self.key once captured
+
+    def run(self, key, batch, stages) -> torch.Tensor:
+        """``stages(*batch)``, replayed from the graph of ``key`` from the
+        key's second batch on."""
+        if key != self.key:
+            self.key, self.graph = key, None
+            DEVICE_MAP_STATS["eager_batches"] += 1
+            return stages(*batch)
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                inputs = tuple(t.clone() for t in batch)
+                self.graph = (inputs, *self._capture(inputs, stages))
+                DEVICE_MAP_STATS["graph_captures"] += 1
+            else:
+                for dst, src in zip(self.graph[0], batch):
+                    dst.copy_(src)
+            _inputs, graph, out = self.graph
+            graph.replay()
+        DEVICE_MAP_STATS["graph_batches"] += 1
+        return out
+
+    def _capture(self, inputs, stages):
+        # capture_begin itself and not ``torch.cuda.graph``, which empties
+        # the device's and the pinned host memory's caches first, a cost in
+        # the middle of a call
+        graph = torch.cuda.CUDAGraph()
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                out = stages(*inputs)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream().wait_stream(self.stream)
+        return graph, out
+
+
+# each CUDA device's memory pool for the stages' graphs, the stream they are
+# captured on and a graph of one fill that holds the pool, kept for the
+# process: the blocks a capture takes, tied to that stream, go back to the
+# pool when its graph is dropped, and the next capture, in this call or a
+# later one, takes them again (a pool whose last graph goes is freed, and no
+# capture can share it after)
+_GRAPH_MEMORY: dict[str, tuple] = {}
+
+
+def _graph_memory(dev: torch.device) -> tuple:
+    """(memory pool, capture stream) of the CUDA device ``dev``."""
+    mem = _GRAPH_MEMORY.get(str(dev))
+    if mem is None:
+        with torch.cuda.device(dev):
+            pool, stream = torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)
+            keeper = torch.cuda.CUDAGraph()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                keeper.capture_begin(pool=pool, capture_error_mode="thread_local")
+                torch.zeros(1, device=dev)
+                keeper.capture_end()
+        mem = _GRAPH_MEMORY[str(dev)] = (pool, stream, keeper)
+    return mem[:2]
 
 
 def _mappings_of_rows(rows) -> list[Mapping]:
@@ -144,6 +247,11 @@ def map_all_with_device(
     multiple of their count D and each batch shards over them, the padded
     layout coming back; reads past a budget go to the host (no tier 2, no
     dense pull).  The stats say ``n_devices=D`` and ``meshed=True``.
+
+    On one CUDA device the v2 batches replay a CUDA graph captured from
+    the six stages (``_StageGraphs``), one a batch shape: a shape's first
+    batch launches op by op, its second captures the graph.  The CPU, the
+    mesh and the v1 join launch op by op.
     Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``, the
     spans to ``timer`` (a new one when none is given).
     """
@@ -167,14 +275,18 @@ def map_all_with_device(
         device=str(dev), n_devices=1 if attached is None else attached.size,
         meshed=mesh is not None, batch_reads=batch_reads, v2=built is not None,
         total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0,
-        tier2_width_reads=0, tier2_hot_reads=0, tier2_host_reads=0, host_map_s=0.0)
+        tier2_width_reads=0, tier2_hot_reads=0, tier2_host_reads=0, host_map_s=0.0,
+        graph_batches=0, eager_batches=0, graph_captures=0)
+    graphs = None
+    if built is not None and mesh is None and dev.type == "cuda":
+        graphs = _StageGraphs(dev)
     results: dict[int, list[Mapping]] = {}
     if built is None:
         _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
                 timer)
     else:
         _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
-                max_per_hit, max_hits, hit_budget, mesh, timer)
+                max_per_hit, max_hits, hit_budget, mesh, graphs, timer)
     for k2 in _CUM_KEYS:
         DEVICE_MAP_STATS_CUM[k2] = DEVICE_MAP_STATS_CUM.get(k2, 0) + DEVICE_MAP_STATS[k2]
     return [(rid, results[rid]) for rid, _ in items]
@@ -308,10 +420,11 @@ def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, 
 
 
 def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
-            max_hits, hit_budget, mesh, timer):
+            max_hits, hit_budget, mesh, graphs, timer):
     """The v2 pass of ``map_all_with_device``, sharded over ``mesh`` when
-    one is given: fills ``results``; the reads that leave the device are
-    mapped on the host at the end, in one call."""
+    one is given, each batch replayed from ``graphs`` when they are given:
+    fills ``results``; the reads that leave the device are mapped on the
+    host at the end, in one call."""
     tables, hash_takes = built
     if hit_budget is None:
         hit_budget = 16 * batch_reads
@@ -376,6 +489,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
                 out, _stats = sharded_map_reads_v2_packed(
                     *batch, tables, mesh, w=cfg.w, max_sel=sel_L, max_pos=pos_L,
                     max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L, **tail_kw)
+                DEVICE_MAP_STATS["eager_batches"] += 1
                 return chunk, *_copy_to_host(pack_hits(out))
 
         with timer.stage("map.tier1"):
@@ -386,24 +500,38 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         _map_on_host(index, to_host, cfg, results, timer)
         return
 
+    def anchors_of(batch, budgets, mph):
+        """Stages 1-5 of one batch (packed, nmask, lens): its anchors."""
+        sel_L, pos_L, _trim = budgets
+        selected, h, strand = sketch_device_packed(*batch, cfg.k, cfg.w)
+        skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
+        rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
+        sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
+        return expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=mph,
+                                        hash_takes=hash_takes)
+
     def dispatch(chunk, L, s, mph=max_per_hit, pos_cap=max_pos, cache_batch=True):
         """The six stages of one batch, queued on the device; returns the
-        pending pull (chunk, flat hits on the host, its ready event,
-        anchors, trim, cap)."""
-        packed_d, nmask_d, lens_d = packed_batch(chunk, L, s, cache=cache_batch)
+        pending pull (chunk, flat hits on the host, its ready event, the
+        batch, its budgets, cap)."""
+        batch = packed_batch(chunk, L, s, cache=cache_batch)
         with timer.stage("map.dispatch"):
-            sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, pos_cap, mph)
-            selected, h, strand = sketch_device_packed(packed_d, nmask_d, lens_d, cfg.k, cfg.w)
-            skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
-            rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
-            sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
-            anchors = expand_anchors_device_v2(*sel, tables.jrows, tables.erows,
-                                               max_per_hit=mph, hash_takes=hash_takes)
-            flat = anchors_to_hits_device_dense(*anchors, trim=trim_L, budget=hit_budget,
-                                                **tail_kw)
+            budgets = device_bucket_budgets(L, cfg.k, pos_cap, mph)
+
+            def stages(*inputs):
+                return anchors_to_hits_device_dense(
+                    *anchors_of(inputs, budgets, mph), trim=budgets[2], budget=hit_budget,
+                    **tail_kw)
+
+            if graphs is None:
+                flat = stages(*batch)
+                DEVICE_MAP_STATS["eager_batches"] += 1
+            else:
+                flat = graphs.run(_graph_key(tables, hash_takes, L, budgets, mph, batch_reads,
+                                             hit_budget, cfg, max_hits), batch, stages)
             # start the copy back now, so the host collects this batch while
-            # the device runs the next one
-            return chunk, *_copy_to_host(flat), anchors, trim_L, mph
+            # the device runs the next one (and before a replay reuses flat)
+            return chunk, *_copy_to_host(flat), batch, budgets, mph
 
     # second-tier expansion cap (0 disables): reads whose violation a
     # wider cap or wider widths fix go through the device again
@@ -413,7 +541,7 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
     deferred: dict[int, list[tuple[int, bytes]]] = {}
 
     def collect(pending):
-        chunk, flat, ready, anchors, trim, mph = pending
+        chunk, flat, ready, batch, budgets, mph = pending
         with timer.stage("map.wait"):
             if ready is not None:
                 ready.synchronize()
@@ -425,11 +553,13 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         counts = np.minimum(n_hits, max_hits)
         if int(counts.sum()) > hit_budget:
             # over the dense budget: pull the padded tail instead (cap
-            # violations fold into its overflow -> host)
+            # violations fold into its overflow -> host), the batch's
+            # anchors computed again, op by op
             DEVICE_MAP_STATS["dense_repulls"] += 1
             with timer.stage("map.repull"):
                 out = unpack_hits(anchors_to_hits_device_packed(
-                    *anchors, trim=trim, per_hit_cap=mph, **tail_kw), max_hits)
+                    *anchors_of(batch, budgets, mph), trim=budgets[2], per_hit_cap=mph,
+                    **tail_kw), max_hits)
             _collect_padded(chunk, out, results, to_host)
             return
         dense_np = flat_np[3 * R :].reshape(hit_budget, 9)[:, 1:]  # drop flat_slot

@@ -290,7 +290,7 @@ def values(per_read):
 
 
 def counters():
-    return {k: mapper_torch.DEVICE_MAP_STATS[k] for k in mapper_torch._CUM_KEYS}
+    return {k: mapper_torch.DEVICE_MAP_STATS[k] for k in mapper_torch._COUNT_KEYS}
 
 
 @pytest.fixture
@@ -326,7 +326,7 @@ def test_map_all_with_device_v1_at_cap_31_matches_jax(case):
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
     want = jax_mapper.map_all_with_device(index, reads, cfg, max_per_hit=31)
-    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._CUM_KEYS}
+    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._COUNT_KEYS}
     assert jax_mapper.DEVICE_MAP_STATS["v2"] is False
     got = mapper_torch.map_all_with_device(*port_side(unitigs, reads), max_per_hit=31,
                                            device="cpu")
@@ -346,7 +346,7 @@ def test_map_all_with_device_v1_overflow_matches_jax(no_v2_tables, mph):
     index = jax_mapper.MinimizerIndex.build(unitigs, cfg)
     kw = dict(max_pos=512, max_per_hit=mph)
     want = jax_mapper.map_all_with_device(index, reads, cfg, **kw)
-    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._CUM_KEYS}
+    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._COUNT_KEYS}
     got = mapper_torch.map_all_with_device(*port_side(unitigs, reads), device="cpu", **kw)
     stats = dict(mapper_torch.DEVICE_MAP_STATS)
     assert values(got) == values(want)
@@ -373,7 +373,7 @@ def test_map_all_v1_paf_matches_jax(no_v2_tables):
     names = dict(unitig_names=lambda u: unitigs.registry.name(u),
                  read_names=lambda r: reads.registry.name(r))
     want = jax_mapper.map_all(index, reads, cfg, device=True, **names)
-    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._CUM_KEYS}
+    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mapper_torch._COUNT_KEYS}
     p_index, p_reads, p_cfg = port_side(unitigs, reads)
     got = mapper_torch.map_all(p_index, p_reads, p_cfg, device=True, torch_device="cpu",
                                **names)

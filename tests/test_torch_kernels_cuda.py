@@ -438,8 +438,13 @@ def test_port_device_mapping_on_card_matches_cpu(cuda):
         assert stats["v2"] and stats["device"].startswith("cuda")
         on_cpu = mt.map_all(index, reads, cfg, unitigs=unitigs, device=True, torch_device="cpu")
         assert on_card == on_cpu
-        assert {k: mt.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS} == {
-            k: stats[k] for k in mt._CUM_KEYS}
+        assert {k: mt.DEVICE_MAP_STATS[k] for k in mt._COUNT_KEYS} == {
+            k: stats[k] for k in mt._COUNT_KEYS}
+        # the card launches a batch shape's first batch op by op and replays
+        # a graph for the rest; the CPU launches every batch op by op
+        assert mt.DEVICE_MAP_STATS["graph_batches"] == 0
+        assert stats["eager_batches"] + stats["graph_batches"] == (
+            mt.DEVICE_MAP_STATS["eager_batches"]) > 0
         assert on_card == mt.map_all(index, reads, cfg, unitigs=unitigs, device=False,
                                      torch_device=cuda)
     assert stats["tier2_reads"] > 0

@@ -94,7 +94,7 @@ def names_of(unitigs, reads):
 
 
 def stats_subset():
-    return {k: mt.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS}
+    return {k: mt.DEVICE_MAP_STATS[k] for k in mt._COUNT_KEYS}
 
 
 def test_map_all_device_matches_jax_host_map_all():
@@ -133,7 +133,7 @@ def test_overflow_reads_fall_back_to_host_and_are_counted(one_jax_device):
     index = jax_mapper.MinimizerIndex.build(store, cfg)
     kw = dict(max_pos=256, max_per_hit=2)
     want = jax_mapper.map_all_with_device(index, reads, cfg, **kw)
-    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS}
+    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mt._COUNT_KEYS}
     got = mt.map_all_with_device(*port_side(store, reads), device="cpu", **kw)
     assert values(got) == values(want)
     assert stats_subset() == want_stats
@@ -272,7 +272,9 @@ def test_cumulative_stats_accumulate():
     mt.map_all_with_device(*port, device="cpu")
     mt.map_all_with_device(*port, device="cpu")
     assert mt.DEVICE_MAP_STATS_CUM == {"total_reads": 6, "overflow_reads": 0,
-                                       "tier2_reads": 0, "dense_repulls": 0}
+                                       "tier2_reads": 0, "dense_repulls": 0,
+                                       "graph_batches": 0, "eager_batches": 2,
+                                       "graph_captures": 0}
 
 
 def test_empty_store():
@@ -292,7 +294,7 @@ def test_unpackable_index_maps_by_v1_on_the_device():
     cfg = MapperConfig()
     index = jax_mapper.MinimizerIndex.build(store, cfg)
     jax_mapper.map_all_with_device(index, reads, cfg, max_per_hit=31)
-    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mt._CUM_KEYS}
+    want_stats = {k: jax_mapper.DEVICE_MAP_STATS[k] for k in mt._COUNT_KEYS}
     out = mt.map_all_with_device(*port_side(store, reads), max_per_hit=31, device="cpu")
     assert mt.DEVICE_MAP_STATS["v2"] is False
     assert stats_subset() == want_stats

@@ -100,7 +100,9 @@ def test_counters_reset_and_stay_out_of_the_sums():
     assert stats["tier2_reads"] == stats["overflow_reads"] == 0
     assert not set(COUNTERS) & set(mt._CUM_KEYS)
     assert {k: mt.DEVICE_MAP_STATS_CUM[k] for k in mt._CUM_KEYS} == cum | {
-        "total_reads": cum["total_reads"] + len(READ_LENGTHS)}
+        "total_reads": cum["total_reads"] + len(READ_LENGTHS),
+        "eager_batches": cum["eager_batches"] + stats["eager_batches"]}
+    assert stats["eager_batches"] >= 1
 
 
 @pytest.fixture(params=["v2", "meshed", "v1"])
