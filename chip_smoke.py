@@ -525,6 +525,7 @@ def time_stages(reads, index, cfg, device) -> tuple[int, dict]:
     """Median CUDA-event ms of each of the six mapping stages on one full
     batch (256 reads) of the bucket holding the most reads."""
     from muchsalsa_tpu_torch.ops import mapping_torch as mpt
+    from muchsalsa_tpu_torch.ops.minimizer_torch import minimizer_sketch
     from muchsalsa_tpu_torch.pipeline.mapper_torch import (
         device_bucket_budgets, device_bucket_len)
 
@@ -548,14 +549,18 @@ def time_stages(reads, index, cfg, device) -> tuple[int, dict]:
     tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
                    min_chain_score=cfg.min_chain_score, max_hits=64, trim=trim_L,
                    budget=16 * 256)
-    sk = mpt.sketch_device_packed(*packed, cfg.k, cfg.w)
+
+    def sketch():
+        return minimizer_sketch(mpt.unpack_codes(*packed[:2]), packed[2], cfg.k, cfg.w)
+
+    sk = sketch()
     sel = mpt.select_compact_device_v2(*sk, max_sel=sel_L)
     probe = mpt.probe_candidates_device_v2(*sel[:2], tables.rp)
     comp = mpt.compact_candidates_device_v2(*sel[:2], *probe, sel[2], max_pos=pos_L)
     anchors = mpt.expand_anchors_device_v2(*comp, tables.jrows, tables.erows, max_per_hit=4,
                                            hash_takes=takes)
     stages = {
-        "sketch": lambda: mpt.sketch_device_packed(*packed, cfg.k, cfg.w),
+        "sketch": sketch,
         "select": lambda: mpt.select_compact_device_v2(*sk, max_sel=sel_L),
         "probe": lambda: mpt.probe_candidates_device_v2(*sel[:2], tables.rp),
         "compact": lambda: mpt.compact_candidates_device_v2(*sel[:2], *probe, sel[2],

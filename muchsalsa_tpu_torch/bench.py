@@ -317,13 +317,9 @@ def _bench_full_mapping(device, R: int = MAP_R, L: int = MAP_L, E: int = INDEX_E
     max_sel, max_pos, trim = device_bucket_budgets(L, 15, 2048, 4)
 
     def chain():
-        selected, h, strand = mt.sketch_device_packed(packed, nmask, lens)
-        skey, h_s, n_sel = mt.select_compact_device_v2(selected, h, strand, max_sel=max_sel)
-        rpv, cand = mt.probe_candidates_device_v2(skey, h_s, tables.rp)
-        sel = mt.compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=max_pos)
-        anchors = mt.expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=4,
-                                              hash_takes=hash_takes)
-        return mt.anchors_to_hits_device_packed(*anchors, trim=trim, per_hit_cap=4)
+        return mt.pack_hits(mt.map_reads_device_v2_packed(
+            packed, nmask, lens, *tables, max_sel=max_sel, max_pos=max_pos, max_per_hit=4,
+            hash_takes=hash_takes, trim=trim))
 
     checksum = int(chain().sum())
     t = _timed("FULL device mapping", chain, dev, timings)

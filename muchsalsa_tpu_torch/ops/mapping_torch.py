@@ -5,14 +5,15 @@ packed join tables (``_pack_blocks``, ``_row_bucket``,
 ``build_device_tables``, ``pack_codes``) and the six stages that
 ``pipeline/mapper.py::map_all_with_device`` runs per batch on the v2 path:
 
-1. ``sketch_device_packed``: unpack the 2-bit codes, minimizer sketch;
+1. ``minimizer_sketch`` over ``unpack_codes``: the minimizer sketch;
 2. ``select_compact_device_v2``: compact the selected minimizers;
 3. ``probe_candidates_device_v2``: one rank-table probe per slot;
 4. ``compact_candidates_device_v2``: compact the candidates;
 5. ``expand_anchors_device_v2``: packed-row join and entry expansion;
 6. ``anchors_to_hits_device_dense`` (or ``_packed``): the chaining tail.
 
-``map_reads_device_v2`` (and ``_packed``) composes the six into one call,
+``anchors_device_v2`` composes stages 1-5, the one place they are
+composed; ``map_reads_device_v2`` (and ``_packed``) adds the padded tail,
 the step that ``parallel/sharded.py`` runs on each shard.
 
 Every function takes and returns tensors on one device and never moves
@@ -215,11 +216,6 @@ def _sorted_low32(seg_id: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def _reverse_cummin(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(x, (1,)), dim=1).values, (1,))
-
-
-def sketch_device_packed(packed, nmask, lens, k: int = 15, w: int = 5):
-    """Stage 1/6: the minimizer sketch over packed codes."""
-    return minimizer_sketch(unpack_codes(packed, nmask), lens, k, w)
 
 
 def select_compact_device_v2(selected, h, strand, max_sel: int = 4608):
@@ -479,6 +475,23 @@ def unpack_hits(arr, max_hits: int) -> dict:
     return out
 
 
+def anchors_device_v2(codes, lens, rp, jrows, erows, *, k: int = 15, w: int = 5,
+                      max_sel: int = 4608, max_pos: int = 1024, max_per_hit: int = 4,
+                      hash_takes: int = 1):
+    """Stages 1-5 of the v2 mapper over (R, L) codes (pad 4) and the
+    ``DeviceTables`` fields: (key, diag, aq, at, overflow, max_ecnt), as
+    ``expand_anchors_device_v2`` returns them."""
+    selected, h, strand = minimizer_sketch(codes, lens, k, w)
+    # a caller's temporary codes die here, before the later stages allocate
+    # (the card's peak); CPython hands a call's arguments to the callee
+    del codes
+    skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=max_sel)
+    rpv, cand = probe_candidates_device_v2(skey, h_s, rp)
+    sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=max_pos)
+    return expand_anchors_device_v2(*sel, jrows, erows, max_per_hit=max_per_hit,
+                                    hash_takes=hash_takes)
+
+
 def map_reads_device_v2(codes, lens, rp, jrows, erows, *, k: int = 15, w: int = 5,
                         bandwidth: int = 500, min_anchor_count: int = 4,
                         min_chain_score: int = 100, max_sel: int = 4608, max_pos: int = 1024,
@@ -488,12 +501,9 @@ def map_reads_device_v2(codes, lens, rp, jrows, erows, *, k: int = 15, w: int = 
     ``DeviceTables`` fields: ``mapping_jax.map_reads_device_v2``, the
     expansion-cap violation folded into ``overflow``.  Returns the dict of
     ``HIT_FIELDS`` (R, max_hits) plus ``n_hits`` and ``overflow``."""
-    selected, h, strand = minimizer_sketch(codes, lens, k, w)
-    skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=max_sel)
-    rpv, cand = probe_candidates_device_v2(skey, h_s, rp)
-    sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=max_pos)
-    key, diag, aq, at, overflow, max_ecnt = expand_anchors_device_v2(
-        *sel, jrows, erows, max_per_hit=max_per_hit, hash_takes=hash_takes)
+    key, diag, aq, at, overflow, max_ecnt = anchors_device_v2(
+        codes, lens, rp, jrows, erows, k=k, w=w, max_sel=max_sel, max_pos=max_pos,
+        max_per_hit=max_per_hit, hash_takes=hash_takes)
     return _anchors_to_hits(key, diag, aq, at, k, bandwidth, min_anchor_count, min_chain_score,
                             max_hits, overflow | (max_ecnt > max_per_hit), trim=trim)
 

@@ -7,21 +7,20 @@ Port of ``muchsalsa_tpu/pipeline/mapper.py::map_all_with_device`` (:454-847),
 buckets and their budgets, ``write_paf``) is the port's copy in
 ``pipeline/mapper.py``.
 
-Device mapping runs the six v2 stages of ``ops.mapping_torch`` per batch of
-one length bucket and pulls each batch's hits in the dense layout.  Reads
-that break a static budget take a second, wider tier on the device or go
-to the host mapper (one ``map_batch`` call at the end); either way the
-result equals ``map_read``'s.  Where the index breaks the v2 packing
-bounds, each batch goes through the v1 join (``map_reads_device``) instead,
-and the reads it flags go to the host mapper.  Where more than one device of
-the requested type is visible, v2 batches shard over all of them
+Device mapping takes one of three routes, chosen once a call.  The v2 on
+one device (``_dense_pass``) runs the six stages of ``ops.mapping_torch``
+per batch of one length bucket and pulls each batch's hits in the dense
+layout; reads that break a static budget take a second, wider tier on the
+device or go to the host mapper (one ``map_batch`` call at the end), and
+either way the result equals ``map_read``'s.  On a CUDA device each batch
+replays a CUDA graph captured from its stages, one a batch shape
+(``_StageGraphs``), so the host launches one graph where it would launch a
+few hundred small ops.  Where the index breaks the v2 packing bounds, the
+v1 join (``map_reads_device``) maps each batch; where more than one device
+of the requested type is visible, v2 batches shard over all of them
 (``parallel/sharded.py::sharded_map_reads_v2_packed``, the tables
-replicated) and come back in the padded layout, with no tier 2: reads past
-a budget go to the host mapper.
-On one CUDA device each v2 batch's six stages replay a CUDA graph captured
-from them, one graph a batch shape (``_StageGraphs``), so the host launches
-one graph where it would launch a few hundred small ops; a shape's first
-batch launches them op by op.
+replicated).  Both pull padded hits (``_padded_pass``) with no tier 2: the
+reads they flag go to the host mapper.
 Refinement builds one padded batch of every mapped region on the device
 from the regions' coordinates into the raw bytes of the reads and unitigs
 (``ops.align_torch.gather_problems``), runs one edit-distance kernel over
@@ -42,6 +41,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,10 +57,9 @@ from muchsalsa_tpu_torch.device import resolve_device
 from muchsalsa_tpu_torch.ops.align_torch import (
     GatherArgs, banded_edit_distance, gather_problems, slice_bounds)
 from muchsalsa_tpu_torch.ops.mapping_torch import (
-    HIT_FIELDS, anchors_to_hits_device_dense, anchors_to_hits_device_packed, build_device_tables,
-    build_join_tables, compact_candidates_device_v2, expand_anchors_device_v2, map_reads_device,
-    pack_codes, pack_hits, probe_candidates_device_v2, select_compact_device_v2,
-    sketch_device_packed, u32_tensor, unpack_hits)
+    HIT_FIELDS, anchors_device_v2, anchors_to_hits_device_dense, build_device_tables,
+    build_join_tables, map_reads_device, map_reads_device_v2_packed, pack_codes, pack_hits,
+    u32_tensor, unpack_codes, unpack_hits)
 from muchsalsa_tpu_torch.ops.myers_torch import myers_banded, myers_edit_distance
 from muchsalsa_tpu_torch.parallel import mesh as mesh_mod
 from muchsalsa_tpu_torch.parallel.sharded import sharded_map_reads_v2_packed
@@ -70,13 +69,13 @@ __all__ = [
     "DEVICE_MAP_STATS", "DEVICE_MAP_STATS_CUM", "MinimizerIndex", "SequenceStore", "map_all",
     "map_all_with_device", "map_batch", "refine_mappings", "write_paf"]
 
-# the last map_all_with_device call's counters (device, v2, total_reads,
-# overflow_reads, tier2_reads, dense_repulls, host_map_s: the map.host span,
-# the host mapper's call on the reads sent there; on the v2 path the tier
-# routing: tier2_width_reads and tier2_hot_reads, the reads the first pass
-# deferred with a width overflow and with an entry count past its cap (a
-# read may count in both), and tier2_host_reads, the reads tier 2 sent on
-# to the host, counted in overflow_reads too; on the v1 path index_entries
+# the last map_all_with_device call's counters, cleared at its start (device,
+# v2, total_reads, overflow_reads, tier2_reads, dense_repulls, host_map_s: the
+# map.host span, the host mapper's call on the reads sent there; on the v2
+# path the tier routing: tier2_width_reads and tier2_hot_reads, the reads the
+# first pass deferred with a width overflow and with an entry count past its
+# cap (a read may count in both), and tier2_host_reads, the reads tier 2 sent
+# on to the host, counted in overflow_reads too; on the v1 path index_entries
 # and v1_setup_s, the map.v1_tables span), and the sums of the counting
 # keys over every call since the caller last cleared it
 DEVICE_MAP_STATS: dict = {}
@@ -208,6 +207,34 @@ def _mappings_of_rows(rows) -> list[Mapping]:
             for r in rows]
 
 
+class _Call(NamedTuple):
+    """What every pass of one ``map_all_with_device`` call shares: its
+    settings, the mappings found and the reads queued for the host mapper."""
+
+    cfg: MapperConfig
+    dev: torch.device
+    batch_reads: int
+    max_pos: int
+    max_per_hit: int
+    max_hits: int
+    timer: StageTimer
+    results: dict
+    to_host: list
+
+    def tail_kw(self) -> dict:
+        """The chaining tail's keyword arguments."""
+        cfg = self.cfg
+        return dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
+                    min_chain_score=cfg.min_chain_score, max_hits=self.max_hits)
+
+    def v2_kw(self, hash_takes, budgets, mph) -> dict:
+        """``map_reads_device_v2``'s keyword arguments for a batch of
+        ``budgets`` (max_sel, max_pos, trim) and expansion cap ``mph``."""
+        sel_L, pos_L, trim_L = budgets
+        return dict(w=self.cfg.w, max_sel=sel_L, max_pos=pos_L, max_per_hit=mph,
+                    hash_takes=hash_takes, trim=trim_L, **self.tail_kw())
+
+
 def map_all_with_device(
     index: MinimizerIndex,
     reads: SequenceStore,
@@ -238,23 +265,21 @@ def map_all_with_device(
     ``MS_TPU_DEV_CACHE_MB`` MiB, default 2048), so later calls on the same
     store reuse them; tier-2 batches depend on the index and never cache.
 
-    Where the index breaks the v2 packing bounds (or ``max_per_hit`` >= 31),
-    the v1 join maps every batch on the device (``_map_v1``) and the stats
-    say ``v2=False``; it has no tier 2, no dense pull and no batch cache.
-
-    With the v2 tables and more than one visible device of ``device``'s
-    type (``parallel.mesh.local_mesh``), ``batch_reads`` rounds up to a
-    multiple of their count D and each batch shards over them, the padded
-    layout coming back; reads past a budget go to the host (no tier 2, no
-    dense pull).  The stats say ``n_devices=D`` and ``meshed=True``.
-
-    On one CUDA device the v2 batches replay a CUDA graph captured from
-    the six stages (``_StageGraphs``), one a batch shape: a shape's first
-    batch launches op by op, its second captures the graph.  The CPU, the
-    mesh and the v1 join launch op by op.
-    Counters go to ``DEVICE_MAP_STATS`` and ``DEVICE_MAP_STATS_CUM``, the
-    spans to ``timer`` (a new one when none is given).
+    One route serves the call.  Where the index breaks the v2 packing
+    bounds (or ``max_per_hit`` >= 31), the v1 join maps every batch and the
+    stats say ``v2=False``.  With the v2 tables and D > 1 visible devices
+    of ``device``'s type (``parallel.mesh.local_mesh``), each batch shards
+    over them, ``batch_reads`` rounded up to a multiple of D; the stats say
+    ``n_devices=D`` and ``meshed=True``.  Both pull padded hits
+    (``_padded_pass``): no tier 2, no dense pull, and no batch cache for
+    the v1 join.  Otherwise the v2 maps on one device (``_dense_pass``); on
+    a CUDA device a batch shape's second batch captures the six stages as
+    a CUDA graph (``_StageGraphs``) that later ones replay.
+    ``DEVICE_MAP_STATS`` is cleared at each call's start and then holds the
+    call's counters, ``DEVICE_MAP_STATS_CUM`` their sums; the spans go to
+    ``timer`` (a new one when none is given).
     """
+    DEVICE_MAP_STATS.clear()
     dev = resolve_device(device)
     timer = timer or StageTimer(verbose=False)
     items = list(reads.items())
@@ -277,39 +302,45 @@ def map_all_with_device(
         total_reads=len(items), overflow_reads=0, dense_repulls=0, tier2_reads=0,
         tier2_width_reads=0, tier2_hot_reads=0, tier2_host_reads=0, host_map_s=0.0,
         graph_batches=0, eager_batches=0, graph_captures=0)
-    graphs = None
-    if built is not None and mesh is None and dev.type == "cuda":
-        graphs = _StageGraphs(dev)
-    results: dict[int, list[Mapping]] = {}
+    call = _Call(cfg, dev, batch_reads, max_pos, max_per_hit, max_hits, timer, {}, [])
+    batches = _batches(_length_buckets(items), batch_reads)
     if built is None:
-        _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
-                timer)
+        _padded_pass(call, batches, *_v1_join(call, index))
+    elif mesh is not None:
+        tables, hash_takes = built
+
+        def launch(batch, budgets):
+            DEVICE_MAP_STATS["eager_batches"] += 1
+            return sharded_map_reads_v2_packed(
+                *batch, tables, mesh, **call.v2_kw(hash_takes, budgets, max_per_hit))[0]
+
+        with timer.stage("map.tier1"):
+            _padded_pass(call, batches, _v2_packer(call, reads), launch)
     else:
-        _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
-                max_per_hit, max_hits, hit_budget, mesh, graphs, timer)
+        _dense_pass(call, batches, _v2_packer(call, reads), built, hit_budget)
+    _map_on_host(index, call)
     for k2 in _CUM_KEYS:
         DEVICE_MAP_STATS_CUM[k2] = DEVICE_MAP_STATS_CUM.get(k2, 0) + DEVICE_MAP_STATS[k2]
-    return [(rid, results[rid]) for rid, _ in items]
+    return [(rid, call.results[rid]) for rid, _ in items]
 
 
-def _map_on_host(index, items, cfg, results, timer) -> None:
-    """Map ``items`` ((read id, sequence) pairs) with the host mapper into
-    ``results``: one multithreaded ``map_batch`` call where the native
-    library serves it (identical to per-read ``map_read``), else
-    ``map_read`` a read."""
-    if not items:
+def _map_on_host(index, call) -> None:
+    """Map the reads the call queued for the host into its results: one
+    multithreaded ``map_batch`` call where the native library serves it
+    (identical to per-read ``map_read``), else ``map_read`` a read."""
+    if not call.to_host:
         return
-    with timer.stage("map.host") as span:
+    with call.timer.stage("map.host") as span:
         store = SequenceStore()
-        for rid, seq in items:
+        for rid, seq in call.to_host:
             store.add(str(rid), seq)
-        per = map_batch(index, store, cfg)
+        per = map_batch(index, store, call.cfg)
         if per is None:
-            for rid, seq in items:
-                results[rid] = map_read(index, seq, cfg)
+            for rid, seq in call.to_host:
+                call.results[rid] = map_read(index, seq, call.cfg)
         else:
-            for (rid, _seq), (_sid, maps) in zip(items, per):
-                results[rid] = maps
+            for (rid, _seq), (_sid, maps) in zip(call.to_host, per):
+                call.results[rid] = maps
     DEVICE_MAP_STATS["host_map_s"] = span.seconds
 
 
@@ -319,6 +350,26 @@ def _length_buckets(items) -> list[tuple[int, list[tuple[int, bytes]]]]:
     for rid, seq in items:
         buckets.setdefault(device_bucket_len(len(seq)), []).append((rid, seq))
     return sorted(buckets.items())
+
+
+def _batches(buckets, batch_reads):
+    """(chunk, L, first row) of each batch of ``batch_reads`` reads of the
+    ``(L, reads)`` buckets, in their order."""
+    return ((members[s : s + batch_reads], L, s)
+            for L, members in buckets for s in range(0, len(members), batch_reads))
+
+
+def _codes_of(seqs, rows: int, L: int, pin: bool = False):
+    """(rows, L) uint8 base codes (pad 4) and (rows,) int32 lengths of
+    ``seqs``, host tensors in pinned memory with ``pin``."""
+    codes = torch.full((rows, L), 4, dtype=torch.uint8, pin_memory=pin)
+    lens = torch.zeros(rows, dtype=torch.int32, pin_memory=pin)
+    codes_np, lens_np = codes.numpy(), lens.numpy()
+    for i, seq in enumerate(seqs):
+        c = encode_2bit(seq)
+        codes_np[i, : len(c)] = c
+        lens_np[i] = len(c)
+    return codes, lens
 
 
 def _copy_to_host(t: torch.Tensor):
@@ -349,39 +400,50 @@ def _pipelined(batches, dispatch, collect, timer) -> None:
             collect(pending)
 
 
-def _collect_packed(pending, max_hits, results, to_host, timer) -> None:
-    """A pending packed pull (chunk, ``pack_hits`` tensor on the host, its
-    ready event) into ``results`` once the copy has landed."""
-    chunk, flat, ready = pending
-    with timer.stage("map.wait"):
-        if ready is not None:
-            ready.synchronize()
-    _collect_padded(chunk, unpack_hits(flat, max_hits), results, to_host)
-
-
-def _collect_padded(chunk, out, results, to_host) -> None:
-    """The padded hits of one batch (``unpack_hits``'s dict) into
-    ``results``; flagged reads are counted and queued in ``to_host``."""
+def _collect_padded(call, chunk, out) -> None:
+    """The padded hits of one batch (``unpack_hits``'s dict) into the
+    call's results; flagged reads are counted and queued for the host."""
     rows = np.stack([out[f] for f in HIT_FIELDS], axis=-1)  # (R, max_hits, 8)
     for i, (rid, seq) in enumerate(chunk):
         if out["overflow"][i]:
             DEVICE_MAP_STATS["overflow_reads"] += 1
-            to_host.append((rid, seq))
+            call.to_host.append((rid, seq))
             continue
-        results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
+        call.results[rid] = _mappings_of_rows(rows[i, : int(out["n_hits"][i])])
 
 
-def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, max_hits,
-            timer):
-    """The v1 pass of ``map_all_with_device``, for an index that the v2
-    tables refuse: the join tables and the index's five arrays go to
-    ``dev`` once, each batch of a length bucket crosses as (R, L) uint8
-    codes in one copy and comes back as one packed tensor; the reads it
-    flags are mapped on the host at the end, in one call."""
+def _padded_pass(call, batches, pack, launch) -> None:
+    """The batches of a route whose hits come back in the padded layout:
+    ``pack(chunk, L, s)`` puts a batch on the device, ``launch(batch,
+    budgets)`` maps it, and its hits cross back in one ``pack_hits``
+    tensor; the reads they flag are queued for the host."""
+    timer = call.timer
+
+    def dispatch(chunk, L, s):
+        batch = pack(chunk, L, s)
+        with timer.stage("map.dispatch"):
+            budgets = device_bucket_budgets(L, call.cfg.k, call.max_pos, call.max_per_hit)
+            return chunk, *_copy_to_host(pack_hits(launch(batch, budgets)))
+
+    def collect(pending):
+        chunk, flat, ready = pending
+        with timer.stage("map.wait"):
+            if ready is not None:
+                ready.synchronize()
+        _collect_padded(call, chunk, unpack_hits(flat, call.max_hits))
+
+    _pipelined(batches, dispatch, collect, timer)
+
+
+def _v1_join(call, index):
+    """(pack, launch) of the v1 join, for an index that the v2 tables
+    refuse: the join tables and the index's five arrays go to the device
+    once, and each batch crosses as (R, L) uint8 codes from pinned memory."""
     E = int(index.offsets[-1])
     if E >= 2**31:
         raise ValueError(f"the v1 join addresses entries with int32 offsets: {E} entries")
-    with timer.stage("map.v1_tables") as span:
+    dev = call.dev
+    with call.timer.stage("map.v1_tables") as span:
         bitmap, rank, rounds = build_join_tables(index.hashes, device=dev)
         idx_dev = (u32_tensor(index.hashes, dev),
                    torch.from_numpy(index.offsets.astype(np.int32)).to(dev),
@@ -390,51 +452,26 @@ def _map_v1(index, items, cfg, dev, results, batch_reads, max_pos, max_per_hit, 
                    torch.from_numpy(index.entry_strand).to(dev))
     DEVICE_MAP_STATS.update(index_entries=E, v1_setup_s=span.seconds)
     pin = dev.type == "cuda"
-    to_host: list[tuple[int, bytes]] = []
 
-    def dispatch(chunk, L):
-        with timer.stage("map.read_pack"):
-            codes = torch.full((batch_reads, L), 4, dtype=torch.uint8, pin_memory=pin)
-            lens = torch.zeros(batch_reads, dtype=torch.int32, pin_memory=pin)
-            codes_np, lens_np = codes.numpy(), lens.numpy()
-            for i, (_rid, seq) in enumerate(chunk):
-                c = encode_2bit(seq)
-                codes_np[i, : len(c)] = c
-                lens_np[i] = len(c)
-            codes_d, lens_d = codes.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
-        with timer.stage("map.dispatch"):
-            _sel, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
-            out = map_reads_device(
-                codes_d, lens_d, *idx_dev, bitmap, rank, k=cfg.k, w=cfg.w,
-                bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
-                min_chain_score=cfg.min_chain_score, max_pos=pos_L, max_per_hit=max_per_hit,
-                max_hits=max_hits, join_rounds=rounds, trim=trim_L)
-            return chunk, *_copy_to_host(pack_hits(out))
+    def pack(chunk, L, _s):
+        with call.timer.stage("map.read_pack"):
+            codes, lens = _codes_of((seq for _rid, seq in chunk), call.batch_reads, L, pin)
+            return codes.to(dev, non_blocking=True), lens.to(dev, non_blocking=True)
 
-    _pipelined(((members[s : s + batch_reads], L)
-                for L, members in _length_buckets(items)
-                for s in range(0, len(members), batch_reads)), dispatch,
-               lambda pending: _collect_packed(pending, max_hits, results, to_host, timer),
-               timer)
-    _map_on_host(index, to_host, cfg, results, timer)
+    def launch(batch, budgets):
+        _sel, pos_L, trim_L = budgets
+        return map_reads_device(*batch, *idx_dev, bitmap, rank, w=call.cfg.w, max_pos=pos_L,
+                                max_per_hit=call.max_per_hit, join_rounds=rounds, trim=trim_L,
+                                **call.tail_kw())
+
+    return pack, launch
 
 
-def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos, max_per_hit,
-            max_hits, hit_budget, mesh, graphs, timer):
-    """The v2 pass of ``map_all_with_device``, sharded over ``mesh`` when
-    one is given, each batch replayed from ``graphs`` when they are given:
-    fills ``results``; the reads that leave the device are mapped on the
-    host at the end, in one call."""
-    tables, hash_takes = built
-    if hit_budget is None:
-        hit_budget = 16 * batch_reads
-    # the dense tail clamps identically: a budget above R*max_hits can
-    # never be filled
-    hit_budget = min(hit_budget, batch_reads * max_hits)
-    tail_kw = dict(k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
-                   min_chain_score=cfg.min_chain_score, max_hits=max_hits)
-
-    to_host: list[tuple[int, bytes]] = []
+def _v2_packer(call, reads):
+    """``pack(chunk, L, s, cache=True)`` of the v2 routes: a batch's 2-bit
+    packed codes, non-ACGT mask and lengths on the device, taken from and
+    kept in the store's batch cache unless ``cache`` is false."""
+    dev, R = call.dev, call.batch_reads
     dev_cache = _batch_cache(reads, dev)
     cache_cap = int(os.environ.get("MS_TPU_DEV_CACHE_MB", "2048")) << 20
 
@@ -442,103 +479,93 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
         nbytes = sum(t.numel() * t.element_size() for t in tensors)
         if nbytes > cache_cap:
             return
-        used = sum(sz for _v, sz in dev_cache.values())
-        while dev_cache and used + nbytes > cache_cap:
-            _k, (_v, sz) = next(iter(dev_cache.items()))
-            del dev_cache[_k]
-            used -= sz
+        while dev_cache and sum(sz for _v, sz in dev_cache.values()) + nbytes > cache_cap:
+            del dev_cache[next(iter(dev_cache))]  # the least recently used
         dev_cache[key] = (tensors, nbytes)
 
-    def packed_batch(chunk, L, s, cache=True):
+    def pack(chunk, L, s, cache=True):
         # tier-2 batches never cache: which reads they hold depends on the
         # index, so a positional key would alias them across calls
-        key = (L, s, batch_reads)
+        key = (L, s, R)
         if cache and key in dev_cache:
             dev_cache[key] = dev_cache.pop(key)  # LRU: move to the back
             return dev_cache[key][0]
-        with timer.stage("map.read_pack"):
+        with call.timer.stage("map.read_pack"):
             seqs = [seq for _rid, seq in chunk]
-            built_np = (native.pack_reads_2bit(seqs, L, n_rows=batch_reads)
+            built_np = (native.pack_reads_2bit(seqs, L, n_rows=R)
                         if native.available() else None)
             if built_np is not None:
                 packed, nmask, lens = built_np
-                tensors = (u32_tensor(packed, dev), u32_tensor(nmask, dev))
+                tensors = (u32_tensor(packed, dev), u32_tensor(nmask, dev),
+                           torch.from_numpy(lens).to(dev))
             else:
-                codes = np.full((batch_reads, L), 4, dtype=np.uint8)
-                lens = np.zeros(batch_reads, dtype=np.int32)
-                for i, seq in enumerate(seqs):
-                    c = encode_2bit(seq)
-                    codes[i, : len(c)] = c
-                    lens[i] = len(c)
-                tensors = pack_codes(codes, device=dev)
-            tensors = (*tensors, torch.from_numpy(lens).to(dev))
+                codes, lens = _codes_of(seqs, R, L)
+                tensors = (*pack_codes(codes.numpy(), device=dev), lens.to(dev))
         if cache:
             cache_put(key, tensors)
         return tensors
 
-    batches = ((members[s : s + batch_reads], L, s)
-               for L, members in _length_buckets(items)
-               for s in range(0, len(members), batch_reads))
-    if mesh is not None:
-        def dispatch_meshed(chunk, L, s):
-            """One batch sharded over the mesh; returns the pending padded
-            pull (chunk, hits on the host, its ready event)."""
-            batch = packed_batch(chunk, L, s)
-            with timer.stage("map.dispatch"):
-                sel_L, pos_L, trim_L = device_bucket_budgets(L, cfg.k, max_pos, max_per_hit)
-                out, _stats = sharded_map_reads_v2_packed(
-                    *batch, tables, mesh, w=cfg.w, max_sel=sel_L, max_pos=pos_L,
-                    max_per_hit=max_per_hit, hash_takes=hash_takes, trim=trim_L, **tail_kw)
-                DEVICE_MAP_STATS["eager_batches"] += 1
-                return chunk, *_copy_to_host(pack_hits(out))
+    return pack
 
-        with timer.stage("map.tier1"):
-            _pipelined(batches, dispatch_meshed,
-                       lambda pending: _collect_packed(pending, max_hits, results, to_host,
-                                                       timer),
-                       timer)
-        _map_on_host(index, to_host, cfg, results, timer)
-        return
 
-    def anchors_of(batch, budgets, mph):
-        """Stages 1-5 of one batch (packed, nmask, lens): its anchors."""
-        sel_L, pos_L, _trim = budgets
-        selected, h, strand = sketch_device_packed(*batch, cfg.k, cfg.w)
-        skey, h_s, n_sel = select_compact_device_v2(selected, h, strand, max_sel=sel_L)
-        rpv, cand = probe_candidates_device_v2(skey, h_s, tables.rp)
-        sel = compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
-        return expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=mph,
-                                        hash_takes=hash_takes)
+def _dense_pass(call, batches, pack, built, hit_budget) -> None:
+    """The v2 route on one device: each batch's six stages, replayed from
+    a CUDA graph on a CUDA device (``_StageGraphs``) and launched op by op
+    elsewhere, its hits pulled in the dense layout.  A batch with more
+    than ``hit_budget`` hits is mapped again op by op and pulled padded;
+    the reads that break a budget go through tier 2 or to the host."""
+    cfg, timer, R, max_hits = call.cfg, call.timer, call.batch_reads, call.max_hits
+    tables, hash_takes = built
+    # the dense tail clamps identically: a budget above R*max_hits can
+    # never be filled
+    hit_budget = min(16 * R if hit_budget is None else hit_budget, R * max_hits)
+    tail_kw = call.tail_kw()
+    graphs = _StageGraphs(call.dev) if call.dev.type == "cuda" else None
+    # second-tier expansion cap (one no wider than the first's disables
+    # tier 2): reads whose violation a wider cap or wider widths fix go
+    # through the device again
+    tier2_mph = min(int(os.environ.get("MS_TPU_MAP_TIER2", "16")), 30)  # < 31: saturation
+    deferred: dict[int, list[tuple[int, bytes]]] = {}
 
-    def dispatch(chunk, L, s, mph=max_per_hit, pos_cap=max_pos, cache_batch=True):
+    def dispatch(chunk, L, s, mph=call.max_per_hit, pos_cap=call.max_pos, cache=True):
         """The six stages of one batch, queued on the device; returns the
         pending pull (chunk, flat hits on the host, its ready event, the
         batch, its budgets, cap)."""
-        batch = packed_batch(chunk, L, s, cache=cache_batch)
+        batch = pack(chunk, L, s, cache)
         with timer.stage("map.dispatch"):
             budgets = device_bucket_budgets(L, cfg.k, pos_cap, mph)
+            sel_L, pos_L, trim_L = budgets
 
-            def stages(*inputs):
-                return anchors_to_hits_device_dense(
-                    *anchors_of(inputs, budgets, mph), trim=budgets[2], budget=hit_budget,
-                    **tail_kw)
+            def stages(packed, nmask, lens):
+                anchors = anchors_device_v2(
+                    unpack_codes(packed, nmask), lens, *tables, k=cfg.k, w=cfg.w,
+                    max_sel=sel_L, max_pos=pos_L, max_per_hit=mph, hash_takes=hash_takes)
+                return anchors_to_hits_device_dense(*anchors, trim=trim_L, budget=hit_budget,
+                                                    **tail_kw)
 
             if graphs is None:
                 flat = stages(*batch)
                 DEVICE_MAP_STATS["eager_batches"] += 1
             else:
-                flat = graphs.run(_graph_key(tables, hash_takes, L, budgets, mph, batch_reads,
-                                             hit_budget, cfg, max_hits), batch, stages)
+                flat = graphs.run(_graph_key(tables, hash_takes, L, budgets, mph, R, hit_budget,
+                                             cfg, max_hits), batch, stages)
             # start the copy back now, so the host collects this batch while
             # the device runs the next one (and before a replay reuses flat)
             return chunk, *_copy_to_host(flat), batch, budgets, mph
 
-    # second-tier expansion cap (0 disables): reads whose violation a
-    # wider cap or wider widths fix go through the device again
-    tier2_mph = min(int(os.environ.get("MS_TPU_MAP_TIER2", "16")), 30)  # < 31: saturation
-    if tier2_mph <= max_per_hit:
-        tier2_mph = 0
-    deferred: dict[int, list[tuple[int, bytes]]] = {}
+    def route(n, width_ovf, max_ecnt, mph) -> str:
+        """Where a read of ``n`` bases goes after a pass with expansion cap
+        ``mph``: "hits" where it broke no budget; else "tier2" where the
+        wider cap or the wider widths fix what broke, and "host" where the
+        read is hot past tier 2's cap or tier 2 cannot grow its widths."""
+        if not (width_ovf or max_ecnt > mph):
+            return "hits"
+        if mph >= tier2_mph or max_ecnt > tier2_mph:
+            return "host"
+        Lb = device_bucket_len(n)
+        widths_grow = (device_bucket_budgets(Lb, cfg.k, 2 * call.max_pos, tier2_mph)
+                       != device_bucket_budgets(Lb, cfg.k, call.max_pos, mph))
+        return "tier2" if max_ecnt > mph or widths_grow else "host"
 
     def collect(pending):
         chunk, flat, ready, batch, budgets, mph = pending
@@ -546,61 +573,47 @@ def _map_v2(index, items, cfg, built, dev, reads, results, batch_reads, max_pos,
             if ready is not None:
                 ready.synchronize()
         flat_np = flat.numpy()
-        R = batch_reads
         n_hits = flat_np[:R]
         width_ovf = flat_np[R : 2 * R] != 0
         max_ecnt = flat_np[2 * R : 3 * R]
         counts = np.minimum(n_hits, max_hits)
         if int(counts.sum()) > hit_budget:
-            # over the dense budget: pull the padded tail instead (cap
-            # violations fold into its overflow -> host), the batch's
-            # anchors computed again, op by op
+            # over the dense budget: the batch mapped again op by op with
+            # the padded tail, cap violations folded into its overflow
             DEVICE_MAP_STATS["dense_repulls"] += 1
             with timer.stage("map.repull"):
-                out = unpack_hits(anchors_to_hits_device_packed(
-                    *anchors_of(batch, budgets, mph), trim=budgets[2], per_hit_cap=mph,
-                    **tail_kw), max_hits)
-            _collect_padded(chunk, out, results, to_host)
+                out = unpack_hits(pack_hits(map_reads_device_v2_packed(
+                    *batch, *tables, **call.v2_kw(hash_takes, budgets, mph))), max_hits)
+            _collect_padded(call, chunk, out)
             return
         dense_np = flat_np[3 * R :].reshape(hit_budget, 9)[:, 1:]  # drop flat_slot
         offs = np.zeros(len(counts) + 1, dtype=np.int64)
         np.cumsum(counts, out=offs[1:])
         for i, (rid, seq) in enumerate(chunk):
-            if width_ovf[i] or max_ecnt[i] > mph:
-                # tier 2 widens the cap and the candidate/anchor widths;
-                # reads hot past its cap, or whose widths it cannot grow
-                # with no cap violation to fix, go to the host
-                Lb = device_bucket_len(len(seq))
-                t2_budgets = device_bucket_budgets(Lb, cfg.k, 2 * max_pos, tier2_mph)
-                t1_budgets = device_bucket_budgets(Lb, cfg.k, max_pos, mph)
-                tier2_helps = max_ecnt[i] > mph or t2_budgets != t1_budgets
-                if mph < tier2_mph and max_ecnt[i] <= tier2_mph and tier2_helps:
-                    deferred.setdefault(Lb, []).append((rid, seq))
-                    DEVICE_MAP_STATS["tier2_reads"] += 1
-                    DEVICE_MAP_STATS["tier2_width_reads"] += int(width_ovf[i])
-                    DEVICE_MAP_STATS["tier2_hot_reads"] += int(max_ecnt[i] > mph)
-                else:
-                    DEVICE_MAP_STATS["overflow_reads"] += 1
-                    to_host.append((rid, seq))
-                continue
-            results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
-
-    def run(batches, **kw):
-        _pipelined(batches, lambda *batch: dispatch(*batch, **kw), collect, timer)
+            where = route(len(seq), width_ovf[i], max_ecnt[i], mph)
+            if where == "hits":
+                call.results[rid] = _mappings_of_rows(dense_np[offs[i] : offs[i + 1]])
+            elif where == "tier2":
+                deferred.setdefault(device_bucket_len(len(seq)), []).append((rid, seq))
+                DEVICE_MAP_STATS["tier2_reads"] += 1
+                DEVICE_MAP_STATS["tier2_width_reads"] += int(width_ovf[i])
+                DEVICE_MAP_STATS["tier2_hot_reads"] += int(max_ecnt[i] > mph)
+            else:
+                DEVICE_MAP_STATS["overflow_reads"] += 1
+                call.to_host.append((rid, seq))
 
     with timer.stage("map.tier1"):
-        run(batches)
+        _pipelined(batches, dispatch, collect, timer)
     # tier 2 over the deferred reads: the wider cap and twice the widths;
     # its own violations go to the host (mph == tier2_mph there)
     if deferred:
-        first_pass_host = len(to_host)
+        first_pass_host = len(call.to_host)
         with timer.stage("map.tier2"):
-            run(((members[s : s + batch_reads], L, ("t2", L, j))
-                 for L, members in sorted(deferred.items())
-                 for j, s in enumerate(range(0, len(members), batch_reads))),
-                mph=tier2_mph, pos_cap=2 * max_pos, cache_batch=False)
-        DEVICE_MAP_STATS["tier2_host_reads"] = len(to_host) - first_pass_host
-    _map_on_host(index, to_host, cfg, results, timer)
+            _pipelined(_batches(sorted(deferred.items()), R),
+                       lambda chunk, L, s: dispatch(chunk, L, s, tier2_mph, 2 * call.max_pos,
+                                                    cache=False),
+                       collect, timer)
+        DEVICE_MAP_STATS["tier2_host_reads"] = len(call.to_host) - first_pass_host
 
 
 def problem_coordinates(

@@ -19,8 +19,10 @@ from muchsalsa_tpu.config import MapperConfig
 from muchsalsa_tpu.io.fasta import SequenceStore
 from muchsalsa_tpu.pipeline import mapper as jax_mapper
 from muchsalsa_tpu.testing.simulate import add_noise, random_genome, simulate
+from muchsalsa_tpu_torch import native
 from muchsalsa_tpu_torch.config import MapperConfig as PortMapperConfig
 from muchsalsa_tpu_torch.io.fasta import SequenceStore as PortStore
+from muchsalsa_tpu_torch.ops.mapping_torch import pack_codes
 from muchsalsa_tpu_torch.pipeline import mapper as port_mapper
 from muchsalsa_tpu_torch.pipeline import mapper_torch as mt
 
@@ -300,6 +302,36 @@ def test_unpackable_index_maps_by_v1_on_the_device():
     assert stats_subset() == want_stats
     assert mt.DEVICE_MAP_STATS["overflow_reads"] < mt.DEVICE_MAP_STATS["total_reads"] == len(reads)
     assert values(out) == host_values(index, reads, cfg)
+
+
+def test_stats_start_clean_each_call():
+    """``DEVICE_MAP_STATS`` is cleared in place at each call's start: a v2
+    call after a v1 call on the same store carries none of the v1 call's
+    keys."""
+    stats = mt.DEVICE_MAP_STATS
+    port = port_side(*repeat_stores(seed=54))
+    mt.map_all_with_device(*port, max_per_hit=31, device="cpu")
+    assert stats["v2"] is False and {"index_entries", "v1_setup_s"} <= set(stats)
+    mt.map_all_with_device(*port, device="cpu")
+    assert mt.DEVICE_MAP_STATS is stats and stats["v2"] is True
+    assert not {"index_entries", "v1_setup_s"} & set(stats)
+
+
+def test_v2_without_the_native_library_matches(monkeypatch):
+    """Without the native library the v2 batches are packed from the
+    shared codes fill and ``pack_codes``, tier 2's too: the same mappings
+    and counters as with it."""
+    unitigs, reads = sim_stores(56, 12_000, 5.0, 1_500)
+    kw = dict(batch_reads=16, max_pos=64, device="cpu")
+    with_lib = mt.map_all_with_device(*port_side(unitigs, reads), **kw)
+    want = stats_subset()
+    assert want["tier2_reads"] > 0
+    packs = []
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(mt, "pack_codes", lambda *a, **k: packs.append(1) or pack_codes(*a, **k))
+    assert mt.map_all_with_device(*port_side(unitigs, reads), **kw) == with_lib
+    assert stats_subset() == want
+    assert len(packs) == mt.DEVICE_MAP_STATS["eager_batches"] > 0  # every batch, once
 
 
 def test_one_store_through_both_packages(one_jax_device):

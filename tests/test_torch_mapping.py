@@ -8,6 +8,8 @@ payloads of padding slots (key I32_MAX) are compared on valid slots only;
 every output a caller reads is compared in full.
 """
 
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from muchsalsa_tpu.pipeline.mapper import (
 from muchsalsa_tpu.testing.simulate import add_noise, random_genome, simulate
 from muchsalsa_tpu.utils.seq import encode_2bit
 from muchsalsa_tpu_torch.ops import mapping_torch as mt
+from muchsalsa_tpu_torch.ops.minimizer_torch import minimizer_sketch
 
 I32_MAX = 2**31 - 1
 
@@ -170,7 +173,8 @@ def run_stages(index, reads, cfg, max_pos_cap=2048, mph=4, hit_budget=None):
 
     j = mj.sketch_device_packed(jnp.asarray(packed), jnp.asarray(nmask), jnp.asarray(lens),
                                 k=cfg.k, w=cfg.w)
-    t = mt.sketch_device_packed(t64(packed), t64(nmask), torch.from_numpy(lens), cfg.k, cfg.w)
+    t = minimizer_sketch(mt.unpack_codes(t64(packed), t64(nmask)), torch.from_numpy(lens), cfg.k,
+                         cfg.w)
     out["sketch"] = (j, t)
 
     jsel = mj.select_compact_device_v2(*j, max_sel=sel_L)
@@ -275,17 +279,44 @@ def composed(index, reads, cfg, max_pos_cap=2048, mph=4, L=None):
     tables, takes = mt.build_device_tables(
         index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
         device="cpu")
-    sk = mt.sketch_device_packed(*mt.pack_codes(codes, device="cpu"), torch.from_numpy(lens),
-                                 cfg.k, cfg.w)
-    skey, h_s, n_sel = mt.select_compact_device_v2(*sk, max_sel=sel_L)
-    rpv, cand = mt.probe_candidates_device_v2(skey, h_s, tables.rp)
-    sel = mt.compact_candidates_device_v2(skey, h_s, rpv, cand, n_sel, max_pos=pos_L)
-    anchors = mt.expand_anchors_device_v2(*sel, tables.jrows, tables.erows, max_per_hit=mph,
-                                          hash_takes=takes)
+    anchors = mt.anchors_device_v2(
+        mt.unpack_codes(*mt.pack_codes(codes, device="cpu")), torch.from_numpy(lens), *tables,
+        k=cfg.k, w=cfg.w, max_sel=sel_L, max_pos=pos_L, max_per_hit=mph, hash_takes=takes)
     packed = mt.anchors_to_hits_device_packed(
         *anchors, k=cfg.k, bandwidth=cfg.bandwidth, min_anchor_count=cfg.min_anchor_count,
         min_chain_score=cfg.min_chain_score, max_hits=64, trim=trim_L, per_hit_cap=mph)
     return [rid for rid, _ in reads.items()], mt.unpack_hits(packed, 64)
+
+
+def test_anchors_device_v2_frees_the_codes_after_the_sketch(sim_data, monkeypatch):
+    """Stages 2-5 run without the caller's temporary (R, L) codes, as when
+    stage 1 was a call of its own: a batch's codes are not held through the
+    later stages, which set the card's peak."""
+    _, reads, cfg, index = sim_data
+    seqs = [s for _, s in reads.items()]
+    L = device_bucket_len(max(len(s) for s in seqs))
+    sel_L, pos_L, _trim = device_bucket_budgets(L, cfg.k, 2048, 4)
+    codes, lens = codes_of(seqs, L)
+    tables, takes = mt.build_device_tables(
+        index.hashes, index.offsets, index.entry_unitig, index.entry_pos, index.entry_strand,
+        device="cpu")
+    refs, alive = [], []
+
+    def fresh_codes():
+        t = mt.unpack_codes(*mt.pack_codes(codes, device="cpu"))
+        refs.append(weakref.ref(t))
+        return t
+
+    select = mt.select_compact_device_v2
+
+    def select_noting(*args, **kw):
+        alive.append(refs[0]() is not None)
+        return select(*args, **kw)
+
+    monkeypatch.setattr(mt, "select_compact_device_v2", select_noting)
+    got = mt.anchors_device_v2(fresh_codes(), torch.from_numpy(lens), *tables, k=cfg.k, w=cfg.w,
+                               max_sel=sel_L, max_pos=pos_L, max_per_hit=4, hash_takes=takes)
+    assert alive == [False] and int((got[0] < I32_MAX).sum()) > 0
 
 
 def assert_matches_host(index, reads, cfg, rids, dev):
